@@ -19,11 +19,12 @@ the forward passes are functions over it, as in the JAX package:
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from acestep_torch.config import DiTConfig
 from acestep_torch.ops.basic import (
@@ -374,10 +375,10 @@ def audio_tokenize(model: AceStepDiT, cfg: DiTConfig, latents: torch.Tensor):
 
 def audio_codes_to_quantized(model: AceStepDiT, cfg: DiTConfig,
                              indices: torch.Tensor) -> torch.Tensor:
-    """5 Hz code ids (B, T5) -> quantized hidden (B, T5, H)."""
+    """5 Hz code ids (B, T5) -> quantized hidden (B, T5, H): float32 codes
+    times the weights cast to float32, as in the JAX package."""
     codes = fsq_indices_to_codes(indices, cfg.fsq_levels)
-    proj = model.tokenizer.fsq.project_out
-    return linear(proj, codes.to(proj.weight.dtype))
+    return linear(model.tokenizer.fsq.project_out, codes)
 
 
 def audio_detokenize(model: AceStepDiT, cfg: DiTConfig,
@@ -429,10 +430,16 @@ def dit_decoder(model: AceStepDiT, cfg: DiTConfig, xt: torch.Tensor,
                 timestep: torch.Tensor, timestep_r: torch.Tensor,
                 context_latents: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
-                cross_kv_cache=None) -> torch.Tensor:
+                cross_kv_cache=None, remat: bool = False) -> torch.Tensor:
     """One denoising forward: (B, T, 64) noisy latents -> (B, T, 64)
     velocity. Self-attention uses geometry-only full/banded attention
-    through the flash kernel; cross-attention is unmasked."""
+    through the flash kernel; cross-attention is unmasked.
+
+    remat=True checkpoints each layer (`torch.utils.checkpoint`,
+    non-reentrant): its activations are recomputed in the backward, as the
+    JAX package rematerialises each scan step. The recompute reads the
+    layer's parameters again, so a caller that swaps them for one forward
+    (`torch.func.functional_call`) runs the backward inside the swap."""
     p = model.decoder
     eps = cfg.rms_norm_eps
     dtype = xt.dtype
@@ -456,7 +463,7 @@ def dit_decoder(model: AceStepDiT, cfg: DiTConfig, xt: torch.Tensor,
     rope = rope_cos_sin(L, cfg.head_dim, cfg.rope_theta, dtype=dtype,
                         device=h.device)
 
-    for i, lp in enumerate(p.layers):
+    def layer(i: int, lp: DiTLayer, h: torch.Tensor) -> torch.Tensor:
         mods = lp.scale_shift_table[None].to(dtype) + tproj   # (B, 6, H)
         shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = [
             mods[:, j:j + 1] for j in range(6)]
@@ -484,7 +491,13 @@ def dit_decoder(model: AceStepDiT, cfg: DiTConfig, xt: torch.Tensor,
         h = h + ca
 
         norm_h = rms_norm(lp.mlp_norm, h, eps) * (1 + c_scale) + c_shift
-        h = (h + mlp(lp.mlp, norm_h.to(dtype)) * c_gate).to(dtype)
+        return (h + mlp(lp.mlp, norm_h.to(dtype)) * c_gate).to(dtype)
+
+    for i, lp in enumerate(p.layers):
+        if remat:
+            h = checkpoint(layer, i, lp, h, use_reentrant=False)
+        else:
+            h = layer(i, lp, h)
 
     mods = p.scale_shift_table[None].to(dtype) + temb[:, None]
     shift, scale = mods[:, 0:1], mods[:, 1:2]
@@ -559,3 +572,98 @@ def prepare_condition(model: AceStepDiT, cfg: DiTConfig, *,
     src = torch.where(is_c > 0, lm_hints.to(src_latents.dtype), src_latents)
     context_latents = torch.cat([src, chunk_masks.to(src.dtype)], dim=-1)
     return enc, enc_mask, context_latents
+
+
+# ==================================================================
+# Flow-matching training loss
+# ==================================================================
+
+
+def sample_t_r(batch_size: int, *, generator: torch.Generator,
+               data_proportion: float = 0.0, timestep_mu: float = -0.4,
+               timestep_sigma: float = 1.0, use_meanflow: bool = True):
+    """Logit-normal (t, r) with t >= r, drawn from `generator`; the first
+    `batch_size * data_proportion` rows get r = t (all rows without
+    meanflow). The JAX function's law on another generator."""
+    dev = generator.device
+    t = torch.sigmoid(torch.randn(batch_size, generator=generator, device=dev)
+                      * timestep_sigma + timestep_mu)
+    r = torch.sigmoid(torch.randn(batch_size, generator=generator, device=dev)
+                      * timestep_sigma + timestep_mu)
+    t, r = torch.maximum(t, r), torch.minimum(t, r)
+    if not use_meanflow:
+        data_proportion = 1.0
+    data_size = int(batch_size * data_proportion)
+    zero_mask = torch.arange(batch_size, device=dev) < data_size
+    return t, torch.where(zero_mask, t, r)
+
+
+def training_loss(model: AceStepDiT, cfg: DiTConfig, *,
+                  hidden_states, attention_mask,
+                  text_hidden_states, text_attention_mask,
+                  lyric_hidden_states, lyric_attention_mask,
+                  refer_audio_packed, refer_order_mask,
+                  src_latents, chunk_masks, is_covers,
+                  silence_latent=None, cfg_ratio: float = 0.15,
+                  max_refer_count: int = 1,
+                  discrete_timesteps: Optional[Sequence[float]] = None,
+                  generator: Optional[torch.Generator] = None,
+                  keep: Optional[torch.Tensor] = None,
+                  noise: Optional[torch.Tensor] = None,
+                  t: Optional[torch.Tensor] = None,
+                  remat: bool = True) -> torch.Tensor:
+    """Flow-matching MSE with CFG condition dropout (fp32 scalar).
+
+    Timesteps: continuous logit-normal by default, or drawn uniformly from
+    `discrete_timesteps` (the turbo shift-3 schedule). The three random
+    draws are taken from `generator` in the JAX function's order (keep
+    mask, noise x1, timesteps), unless given: `keep` (B,) bool (True keeps
+    the condition), `noise` shaped like `hidden_states`, `t` (B,). JAX keys
+    and torch generators draw different numbers, so parity tests pass the
+    JAX draws here. Padded frames (attention_mask 0) are left out of the
+    mean."""
+    enc, _enc_mask, context_latents = prepare_condition(
+        model, cfg,
+        text_hidden_states=text_hidden_states,
+        text_attention_mask=text_attention_mask,
+        lyric_hidden_states=lyric_hidden_states,
+        lyric_attention_mask=lyric_attention_mask,
+        refer_audio_packed=refer_audio_packed,
+        refer_order_mask=refer_order_mask,
+        src_latents=src_latents, chunk_masks=chunk_masks, is_covers=is_covers,
+        silence_latent=silence_latent, max_refer_count=max_refer_count)
+    x0 = hidden_states
+    bsz = x0.shape[0]
+    dev = x0.device
+    if keep is None:
+        keep = torch.rand(bsz, generator=generator, device=dev) >= cfg_ratio
+    null = model.null_condition_emb.to(enc.dtype)
+    enc = torch.where(keep.to(dev).reshape(bsz, 1, 1), enc, null.expand_as(enc))
+
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=generator, device=dev,
+                            dtype=x0.dtype)
+    x1 = noise.to(x0.dtype)
+    if t is None:
+        if discrete_timesteps is not None:
+            pool = torch.as_tensor(discrete_timesteps, dtype=torch.float32,
+                                   device=dev)
+            idx = torch.randint(0, pool.shape[0], (bsz,),
+                                generator=generator, device=dev)
+            t = pool[idx]
+        else:
+            t, _ = sample_t_r(bsz, generator=generator,
+                              data_proportion=cfg.data_proportion,
+                              timestep_mu=cfg.timestep_mu,
+                              timestep_sigma=cfg.timestep_sigma,
+                              use_meanflow=False)
+    t = t.to(device=dev, dtype=x0.dtype)
+    tb = t[:, None, None]
+    xt = tb * x1 + (1.0 - tb) * x0
+
+    v = dit_decoder(model, cfg, xt, t, t, context_latents,
+                    encoder_hidden_states=enc, remat=remat)
+    flow = x1 - x0
+    sq = (v.float() - flow.float()) ** 2
+    m = attention_mask.to(torch.float32)[:, :, None]
+    return (sq * m).sum() / torch.clamp(m.sum() * sq.shape[-1], min=1.0)

@@ -36,6 +36,11 @@ _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_fl
 SIGNATURES = {
     # q, k, v, out, lse, B, Lq, Lk, Hq, Hkv, 9 strides, window, scale, stream
     "acestep_flash_fwd": [_VP] * 5 + [_I] * 5 + [_LL] * 9 + [_I, _F, _VP],
+    # q, k, v, dout, lse, delta, dq, B, Lq, Lk, Hq, Hkv, window, scale, stream
+    "acestep_flash_bwd_dq": [_VP] * 7 + [_I] * 6 + [_F, _VP],
+    # q, k, v, dout, lse, delta, dk, dv, B, Lq, Lk, Hq, Hkv, window, scale,
+    # stream
+    "acestep_flash_bwd_dkv": [_VP] * 8 + [_I] * 6 + [_F, _VP],
     # x, out, w7, wp, b7, bp, ea, ieb, N, L, C, stream
     "acestep_snake_conv": [_VP] * 8 + [_I] * 3 + [_VP],
 }

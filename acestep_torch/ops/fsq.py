@@ -1,4 +1,4 @@
-"""Finite Scalar Quantization (FSQ), inference form.
+"""Finite Scalar Quantization (FSQ).
 
 Semantics of `vector_quantize_pytorch.ResidualFSQ` with num_quantizers=1,
 levels (8,8,8,5,5,5) => 64 000 codes, as in `acestep_tpu/ops/fsq.py`.
@@ -27,13 +27,20 @@ def _consts(levels: Sequence[int], device):
             t(shift.astype(np.float32)), t(half_width), t(basis))
 
 
-def fsq_quantize(z: torch.Tensor, levels: Sequence[int]):
-    """z (..., len(levels)) -> (codes in [-1, 1] like z, int32 indices)."""
+def fsq_quantize(z: torch.Tensor, levels: Sequence[int], *,
+                 ste: bool = True):
+    """z (..., len(levels)) -> (codes in [-1, 1] like z, int32 indices).
+
+    With `ste` the rounding passes its gradient straight through
+    (bounded + detach(round(bounded) - bounded)), as the JAX function's
+    default does; the arithmetic is the JAX function's, op for op."""
     _, half_l, offset, shift, half_width, basis = _consts(levels, z.device)
     bounded = torch.tanh(z.float() + shift) * half_l - offset
     rounded = torch.round(bounded)
+    if ste:
+        rounded = bounded + (rounded - bounded).detach()
     codes = rounded / half_width
-    digits = (rounded + half_width).to(torch.int32)
+    digits = (rounded.detach() + half_width).to(torch.int32)
     indices = (digits * basis).sum(dim=-1).to(torch.int32)
     return codes.to(z.dtype), indices
 

@@ -6,6 +6,10 @@ Three residual units with dilations 1/3/9, each
 (`csrc/snake_conv.cu`, which replaces `acestep_tpu/ops/snake_conv.py::_kernel`)
 for CUDA tensors and runs `res_unit_stack_plain`, the composed chain, for
 CPU tensors. A CUDA tensor the kernel does not take raises.
+
+It is differentiable through `ResUnitStack`, whose backward recomputes
+through the composed chain, as the JAX stack's `custom_vjp` recomputes
+through `_composed_stack`: there is no backward kernel.
 """
 
 from __future__ import annotations
@@ -110,9 +114,42 @@ def res_unit_stack_cuda(units: Sequence, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def res_unit_stack(units: Sequence, x: torch.Tensor) -> torch.Tensor:
-    """Fused 3-unit stack on (B, L, C): the kernel for CUDA tensors, the
-    composed chain for CPU tensors."""
+def _forward(units: Sequence, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return res_unit_stack_plain(units, x)
     return res_unit_stack_cuda(units, x)
+
+
+class ResUnitStack(torch.autograd.Function):
+    """Forward: the kernel (the composed chain on the CPU). Backward:
+    recompute through the composed chain and differentiate it, for x and
+    for every parameter of the three units."""
+
+    @staticmethod
+    def forward(ctx, x, units, *params):
+        ctx.units = units
+        ctx.save_for_backward(x, *params)
+        return _forward(units, x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, *params = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_()
+            out = res_unit_stack_plain(ctx.units, xd)
+        grads = iter(torch.autograd.grad(
+            out, [xd] + [p for p in params if p.requires_grad], grad))
+        gx = next(grads)
+        return (gx, None, *[next(grads) if p.requires_grad else None
+                            for p in params])
+
+
+def res_unit_stack(units: Sequence, x: torch.Tensor) -> torch.Tensor:
+    """Fused 3-unit stack on (B, L, C): the kernel for CUDA tensors, the
+    composed chain for CPU tensors. Differentiable through `ResUnitStack`;
+    with no gradient to track the forward runs alone."""
+    params = [p for u in units for p in u.parameters()]
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for p in params)):
+        return ResUnitStack.apply(x, units, *params)
+    return _forward(units, x)

@@ -31,7 +31,9 @@ from acestep_torch.models.sampler import (
     truncate_for_cover_noise,
 )
 from acestep_torch.models.vae import OobleckVAE, init_vae_params
-from acestep_torch.models.vae_tiled import DEFAULT_DECODE_OVERLAP, tiled_decode
+from acestep_torch.models.vae_tiled import (
+    DEFAULT_DECODE_OVERLAP, DEFAULT_ENCODE_CHUNK, tiled_decode, tiled_encode,
+)
 from acestep_torch.pipeline import text as textlib
 from acestep_torch.pipeline.embedder import HashTextEmbedder
 from acestep_torch.runtime_config import (
@@ -175,8 +177,26 @@ class AceStepHandler:
         return packed, np.arange(B, dtype=np.int32)
 
     # --------------------------------------------------------------
-    # Decode
+    # Encode / decode
     # --------------------------------------------------------------
+
+    @torch.no_grad()
+    def encode_audio(self, audio: np.ndarray) -> np.ndarray:
+        """(samples, ch) float32 -> (T, 64) latents (the encoder's mean)
+        through the tiled VAE encode. Audio pads to a frame-bucket multiple
+        of hop samples, as in the JAX handler; an out-of-memory error
+        raises (the JAX handler's retry ladder is not ported)."""
+        x = np.asarray(audio, np.float32)
+        hop = self.vae_cfg.hop_length
+        T_real = -(-x.shape[0] // hop)
+        pad = (-x.shape[0]) % (self.frame_bucket * hop)
+        if pad:
+            x = np.pad(x, ((0, pad), (0, 0)))
+        z = tiled_encode(self.vae, self.vae_cfg, self._tensor(x[None]),
+                         chunk_size=min(self.tier.encode_chunk,
+                                        DEFAULT_ENCODE_CHUNK),
+                         parallel_windows=8)
+        return z[0, :T_real].float().cpu().numpy()
 
     def _decode_plan(self, T: int) -> tuple:
         """(chunk, parallel_windows) for a T-frame decode; the tier caps

@@ -1,0 +1,204 @@
+"""Training CLI of the PyTorch port.
+
+    python -m acestep_torch.training.cli preprocess --manifest dataset.json \
+        --out-dir tensors
+    python -m acestep_torch.training.cli vanilla --tensor-dir tensors \
+        --output-dir lora_output --max-steps 2000
+    python -m acestep_torch.training.cli fixed ...
+    python -m acestep_torch.training.cli presets
+
+Port of the `preprocess`, `vanilla` (LoRA/LoKr, discrete turbo shift-3
+timesteps), `fixed` (continuous logit-normal timesteps) and `presets`
+subcommands of `acestep_tpu/training/cli.py`. The model is the full-width
+turbo DiT (`--tiny`: the miniature test config) with seeded random
+weights, on the CUDA device in bf16 unless `--device cpu` (float32, the
+plain versions of the kernels). `vanilla`/`fixed` append every progress
+event to `<output-dir>/metrics.jsonl` ({"step", "loss", "ts"}).
+
+Not ported yet: checkpoint loading (`--checkpoint-dir`, `--pick`,
+`--vae-dir` raise), and the `dataset`, `estimate` and `full` subcommands.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from typing import Optional
+
+from acestep_torch.config import DiTConfig, VAEConfig
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: checkpoint loading comes with the "
+        f"checkpoint-loader slice of the PyTorch port (acestep_tpu has it)")
+
+
+def _build_handler(args):
+    import torch
+
+    from acestep_torch.pipeline.handler import AceStepHandler
+
+    for flag in ("checkpoint_dir", "pick", "vae_dir"):
+        if getattr(args, flag, None):
+            raise _not_ported("--" + flag.replace("_", "-"))
+    dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
+    if args.tiny:
+        # the tiny VAE emits latents at the tiny DiT's acoustic dim (64)
+        handler = AceStepHandler(DiTConfig.tiny(),
+                                 VAEConfig.tiny(decoder_input_channels=64),
+                                 dtype=dtype, frame_bucket=25, min_frames=25,
+                                 refer_frames=10, device=args.device)
+    else:
+        handler = AceStepHandler(dtype=dtype, device=args.device)
+    handler.initialize_service(seed=args.seed)
+    return handler
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="DiT checkpoint dir (not ported yet)")
+    p.add_argument("--pick", default=None, metavar="NAME",
+                   help="checkpoint discovery by name (not ported yet)")
+    p.add_argument("--vae-dir", default=None,
+                   help="VAE checkpoint dir (not ported yet)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--tiny", action="store_true",
+                   help="miniature model (tests)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "versions of the kernels in float32)")
+
+
+def _add_train_common(p: argparse.ArgumentParser) -> None:
+    _add_common(p)
+    p.add_argument("--tensor-dir", required=True,
+                   help="directory of preprocessed sample_*.npz tensors")
+    p.add_argument("--output-dir", default="lora_output")
+    p.add_argument("--preset", default=None,
+                   help="named preset (see `presets`); flags override it")
+    p.add_argument("--kind", choices=["lora", "lokr"], default=None)
+    p.add_argument("--rank", type=int, default=None)
+    p.add_argument("--alpha", type=float, default=None)
+    p.add_argument("--lokr-factor", type=int, default=None)
+    p.add_argument("--learning-rate", type=float, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--checkpoint-every", type=int, default=None)
+    p.add_argument("--log-every", type=int, default=None)
+    p.add_argument("--resume-from", default=None,
+                   help="checkpoint_<step> directory to resume from")
+    p.add_argument("--adapter-name", default=None)
+    p.add_argument("--val-fraction", type=float, default=0.0)
+
+
+def _training_config(args, timestep_mode: str):
+    from acestep_torch.training.lora import LoRATrainingConfig
+    from acestep_torch.training.presets import get_preset
+
+    overrides = {
+        name: getattr(args, name)
+        for name in ("kind", "rank", "alpha", "lokr_factor", "learning_rate",
+                     "batch_size", "max_steps", "checkpoint_every",
+                     "log_every", "resume_from", "adapter_name")
+        if getattr(args, name) is not None
+    }
+    overrides["output_dir"] = args.output_dir
+    overrides["seed"] = args.seed
+    if args.preset:
+        tcfg = get_preset(args.preset, **overrides)
+    else:
+        tcfg = LoRATrainingConfig(**overrides)
+    # the subcommand is the timestep-mode selector; it overrides the preset
+    return dataclasses.replace(tcfg, timestep_mode=timestep_mode)
+
+
+def _run_adapter_training(args, timestep_mode: str) -> int:
+    import os
+
+    from acestep_torch.training.data import PreprocessedDataset, make_batches
+    from acestep_torch.training.lora import LoRATrainer
+    from acestep_torch.utils.fsio import append_jsonl
+
+    handler = _build_handler(args)
+    tcfg = _training_config(args, timestep_mode)
+    dataset = PreprocessedDataset(args.tensor_dir,
+                                  val_fraction=args.val_fraction,
+                                  seed=args.seed)
+    batches = make_batches(dataset.train_files, tcfg.batch_size,
+                           latent_dim=handler.cfg.audio_acoustic_hidden_dim,
+                           seed=args.seed)
+    print(f"training {tcfg.kind} ({tcfg.timestep_mode}) on "
+          f"{len(dataset.train_files)} samples "
+          f"(+{len(dataset.val_files)} val) -> {tcfg.output_dir}",
+          flush=True)
+    trainer = LoRATrainer(handler.model, handler.cfg, tcfg)
+    metrics = os.path.join(tcfg.output_dir, "metrics.jsonl")
+    for step, loss, message in trainer.train(batches):
+        append_jsonl(metrics, {"step": step, "loss": loss, "ts": time.time()})
+        print(message, flush=True)
+    return 0
+
+
+def cmd_vanilla(args) -> int:
+    return _run_adapter_training(args, "discrete_shift3")
+
+
+def cmd_fixed(args) -> int:
+    return _run_adapter_training(args, "continuous")
+
+
+def cmd_preprocess(args) -> int:
+    from acestep_torch.training.preprocess import preprocess_audio_files
+
+    handler = _build_handler(args)
+    written = preprocess_audio_files(handler, args.manifest, args.out_dir)
+    print(f"wrote {len(written)} tensor files -> {args.out_dir}")
+    return 0
+
+
+def cmd_presets(_args) -> int:
+    from acestep_torch.training.presets import PRESETS
+
+    for name, kw in PRESETS.items():
+        desc = ", ".join(f"{k}={v}" for k, v in kw.items())
+        print(f"{name:<10} {desc}")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m acestep_torch.training.cli",
+        description="ACE-Step training CLI (PyTorch port)")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("vanilla", help="LoRA/LoKr, discrete shift-3 "
+                       "timesteps")
+    _add_train_common(p)
+    p.set_defaults(fn=cmd_vanilla)
+
+    p = sub.add_parser("fixed", help="LoRA/LoKr, continuous timesteps "
+                       "matching the model config")
+    _add_train_common(p)
+    p.set_defaults(fn=cmd_fixed)
+
+    p = sub.add_parser("preprocess", help="manifest -> tensor dir")
+    _add_common(p)
+    p.add_argument("--manifest", required=True, help="dataset.json path")
+    p.add_argument("--out-dir", required=True)
+    p.set_defaults(fn=cmd_preprocess)
+
+    p = sub.add_parser("presets", help="list named training presets")
+    p.set_defaults(fn=cmd_presets)
+    return parser
+
+
+def main(argv: Optional[list] = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

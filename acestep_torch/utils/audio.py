@@ -1,9 +1,11 @@
-"""Audio output: peak normalization, WAV save, AudioSaver, params -> UUID.
+"""Audio I/O: load (stereo, 48 kHz), peak normalization, WAV save,
+AudioSaver, params -> UUID.
 
 A copy of the parts of `acestep_tpu/utils/audio.py` that the text2music
-path uses. WAV is written with the stdlib `wave` module; flac, mp3, opus,
-aac, ogg and m4a go through an external `ffmpeg` binary when one is present
-(the native FLAC encoder is not ported yet).
+and training paths use. WAV is read and written with the stdlib `wave`
+module and resampled with scipy's polyphase filter; other formats (flac,
+mp3, opus, aac, ogg, m4a) go through an external `ffmpeg` binary when one
+is present (the native FLAC codec is not ported yet).
 """
 
 from __future__ import annotations
@@ -18,11 +20,95 @@ from typing import Optional
 
 import numpy as np
 
-from acestep_torch.constants import SAMPLE_RATE
+from acestep_torch.constants import AUDIO_CHANNELS, SAMPLE_RATE
 
 
 def _ffmpeg() -> Optional[str]:
     return shutil.which("ffmpeg")
+
+
+# ------------------------------------------------------------------
+# Load
+# ------------------------------------------------------------------
+
+
+def load_wav(path: str) -> tuple[np.ndarray, int]:
+    """Read a WAV file -> (float32 (frames, channels) in [-1, 1], sample_rate)."""
+    with wave.open(str(path), "rb") as f:
+        sr = f.getframerate()
+        n = f.getnframes()
+        ch = f.getnchannels()
+        width = f.getsampwidth()
+        raw = f.readframes(n)
+    if width == 2:
+        data = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+    elif width == 4:
+        data = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
+    elif width == 1:
+        data = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
+    else:
+        raise ValueError(f"unsupported sample width {width}")
+    return data.reshape(-1, ch), sr
+
+
+def _ffmpeg_decode(path, target_sr: int, target_channels: int) -> np.ndarray:
+    """Decode any ffmpeg-readable file straight to clipped f32 PCM at the
+    target rate/channels."""
+    out = subprocess.run(
+        [_ffmpeg(), "-v", "error", "-i", str(path), "-f", "f32le",
+         "-ac", str(target_channels), "-ar", str(target_sr), "-"],
+        capture_output=True, check=True)
+    data = np.frombuffer(out.stdout, dtype="<f4").reshape(-1, target_channels)
+    return np.clip(data, -1.0, 1.0)   # ffmpeg resampler overshoots too
+
+
+def load_audio(path: str, *, target_sr: int = SAMPLE_RATE,
+               target_channels: int = AUDIO_CHANNELS) -> np.ndarray:
+    """Load audio -> float32 (frames, target_channels) at target_sr: WAV
+    natively, anything else through ffmpeg when present."""
+    p = Path(path)
+    if p.suffix.lower() == ".wav":
+        try:
+            data, sr = load_wav(path)
+        except (ValueError, wave.Error, EOFError):
+            # outside the stdlib reader's surface (24-bit, IEEE-float,
+            # malformed headers)
+            if not _ffmpeg():
+                raise
+            return _ffmpeg_decode(p, target_sr, target_channels)
+    elif _ffmpeg():
+        return _ffmpeg_decode(p, target_sr, target_channels)
+    else:
+        raise ValueError(
+            f"cannot load {p.suffix} without ffmpeg; provide a .wav file")
+    data = to_channels(data, target_channels)
+    if sr != target_sr:
+        data = resample(data, sr, target_sr)
+    # polyphase filters can overshoot +-1, and float wavs may carry
+    # out-of-range samples
+    return np.clip(data, -1.0, 1.0)
+
+
+def to_channels(data: np.ndarray, channels: int) -> np.ndarray:
+    if data.shape[1] == channels:
+        return data
+    if channels == 2 and data.shape[1] == 1:
+        return np.repeat(data, 2, axis=1)
+    if data.shape[1] > channels >= 2:
+        return data[:, :channels]   # extra channels are truncated
+    if channels == 1:
+        return data.mean(axis=1, keepdims=True)
+    return np.tile(data.mean(axis=1, keepdims=True), (1, channels))
+
+
+def resample(data: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    """Polyphase resampling along axis 0."""
+    from math import gcd
+
+    from scipy.signal import resample_poly
+
+    g = gcd(sr_in, sr_out)
+    return resample_poly(data, sr_out // g, sr_in // g, axis=0).astype(np.float32)
 
 
 # ------------------------------------------------------------------

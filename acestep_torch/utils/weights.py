@@ -11,6 +11,12 @@ Layout rules of the JAX package:
   `nn.ConvTranspose1d` with the unflipped kernel laid out (in, out, k);
 - the decoder and encoder layers are stacked on a leading axis, one entry
   of `layers.{i}` each; the VAE's blocks are lists.
+
+A tree shaped like the parameters maps the same way, so `dit_from_jax` of a
+JAX gradient tree gives the gradient of each of the port's parameters by
+name. LoRA/LoKr adapters keep the JAX layout in both packages
+(`lora/adapters.py`): `adapter_from_jax` / `adapter_to_jax` only move their
+arrays between numpy and tensors.
 """
 
 from __future__ import annotations
@@ -98,3 +104,22 @@ def vae_from_jax(tree, module: Optional[nn.Module] = None):
     """JAX `init_vae_params` tree -> the OobleckVAE state_dict (fp32), or
     the module with it loaded."""
     return _load(_convert(tree), module)
+
+
+def adapter_from_jax(adapter: dict, device=None,
+                     dtype=torch.float32) -> dict:
+    """{meta, weights} with numpy (or JAX) leaves -> the same tree with
+    tensors on `device`."""
+    return {"meta": dict(adapter["meta"]),
+            "weights": {name: {part: torch.tensor(np.asarray(x), dtype=dtype,
+                                                  device=device)
+                               for part, x in pair.items()}
+                        for name, pair in adapter["weights"].items()}}
+
+
+def adapter_to_jax(adapter: dict) -> dict:
+    """{meta, weights} with tensor leaves -> numpy leaves (float32)."""
+    return {"meta": dict(adapter["meta"]),
+            "weights": {name: {part: x.detach().float().cpu().numpy()
+                               for part, x in pair.items()}
+                        for name, pair in adapter["weights"].items()}}

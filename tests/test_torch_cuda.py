@@ -17,6 +17,15 @@ reference is the plain version computed in fp32 from the same bf16 inputs.
   before the products (~4e-3 relative per operand, over 7*C-term sums) and
   the output is stored as bf16, so the stack is held to
   2e-2 * max(1, max|ref|).
+- K2/K3 (flash backward): P and dS are rounded to bf16 before their
+  products (the forward's rule) and dq/dk/dv are stored as bf16, over sums
+  of up to L terms, so each is held to 2e-2 * max(1, max|ref|).
+- Gradients through `flash_attention` (K1 then K2/K3) against autograd
+  through the plain forward in fp32 from the same bf16 inputs: the same
+  2e-2 rule, as the forward's bf16 `out` enters delta. Gradients through
+  `res_unit_stack` (K4 forward, composed-chain backward) against autograd
+  through the composed chain on the same bf16 inputs: the backward is that
+  chain, so only the forward's kernel-vs-chain rounding differs, 2e-2.
 """
 
 import pytest
@@ -129,3 +138,77 @@ def test_snake_kernel_rejects_what_it_does_not_take(cuda_device):
         sc.res_unit_stack_cuda(units, x.cpu())
     with pytest.raises(ValueError):
         sc.res_unit_stack(units, x.transpose(1, 2).contiguous()[:, :, :64])
+
+
+@pytest.mark.parametrize("B,Lq,Lk,Hq,Hkv,window", [
+    (1, 37, 37, 4, 2, None),        # one ragged tile
+    (2, 130, 130, 16, 8, 16),       # GQA, narrow band, ragged
+    (1, 200, 200, 8, 8, 128),       # band wider than a tile
+    (1, 1001, 1001, 16, 8, 128),    # main-path heads, ragged L
+    (2, 257, 257, 16, 8, None),
+    (1, 70, 130, 4, 2, None),       # Lq != Lk
+    (1, 130, 70, 4, 2, 16),         # Lq > Lk + W: rows with no valid key
+])
+def test_flash_bwd_kernels_match_plain(cuda_device, B, Lq, Lk, Hq, Hkv,
+                                       window):
+    q, k, v = _qkv(cuda_device, B, Lq, Lk, Hq, Hkv, seed=Lq * 7 + Lk)
+    g = torch.Generator(cuda_device).manual_seed(Lq)
+    dout = torch.randn(q.shape, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    out, lse = fa.flash_attention_with_lse(q, k, v, window=window)
+    before = (fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, window)
+    torch.cuda.synchronize()
+    assert (fa.launches_bwd_dq, fa.launches_bwd_dkv) == (before[0] + 1,
+                                                         before[1] + 1)
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                       out.float(), lse, dout.float(), window)
+    for name, a, r, like in zip(("dq", "dk", "dv"), got, ref, (q, k, v)):
+        assert a.dtype == torch.bfloat16 and a.shape == like.shape, name
+        assert torch.isfinite(a).all(), name
+        assert _scaled_err(a, r) < 2e-2, (name, _scaled_err(a, r))
+
+
+def test_flash_attention_gradients_on_card(cuda_device):
+    """requires_grad inputs on the card get gradients through K1 + K2/K3."""
+    q, k, v = _qkv(cuda_device, 1, 300, 300, 16, 8, seed=3)
+    g = torch.Generator(cuda_device).manual_seed(4)
+    w = torch.randn(q.shape, generator=g, device=cuda_device)
+    for window in (None, 128):
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+        (fa.flash_attention(qg, kg, vg, window=window).float() * w).sum() \
+            .backward()
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv) == \
+            tuple(n + 1 for n in before)
+        qr, kr, vr = (x.float().requires_grad_() for x in (q, k, v))
+        (fa.flash_attention_plain(qr, kr, vr, window)[0] * w).sum().backward()
+        for a, r in ((qg, qr), (kg, kr), (vg, vr)):
+            assert a.grad is not None and a.grad.dtype == torch.bfloat16
+            assert _scaled_err(a.grad, r.grad) < 2e-2
+
+
+def test_res_unit_stack_gradients_on_card(cuda_device):
+    """requires_grad inputs and parameters on the card get gradients: the
+    kernel runs the forward, the composed chain the backward."""
+    units = _units(cuda_device, 128, seed=9)
+    g = torch.Generator(cuda_device).manual_seed(5)
+    x = torch.randn((2, 300, 128), generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    w = torch.randn(x.shape, generator=g, device=cuda_device)
+    for u in units:
+        u.requires_grad_(True)
+    xg = x.clone().requires_grad_()
+    before = sc.launches
+    (sc.res_unit_stack(units, xg).float() * w).sum().backward()
+    torch.cuda.synchronize()
+    assert sc.launches == before + 1
+    got = [xg.grad] + [p.grad.clone() for u in units for p in u.parameters()]
+    for u in units:
+        u.zero_grad(set_to_none=True)
+    xr = x.clone().requires_grad_()
+    (sc.res_unit_stack_plain(units, xr).float() * w).sum().backward()
+    ref = [xr.grad] + [p.grad for u in units for p in u.parameters()]
+    for a, r in zip(got, ref):
+        assert a is not None and _scaled_err(a, r.float()) < 2e-2

@@ -11,10 +11,14 @@ product, compounding through the layers of a model).
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from acestep_tpu.config import DiTConfig, VAEConfig
+from acestep_tpu.models import dit as jdit
+
+B, T, LT, LL, RF = 2, 20, 7, 9, 10      # training batch geometry
 
 def tiny_dit_cfg() -> DiTConfig:
     return DiTConfig.tiny(fsq_dim=64)
@@ -82,3 +86,44 @@ def assert_close(got, want, *, atol: float, rtol: float = 0.0, what=""):
     want = np.asarray(want, np.float64)
     assert got.shape == want.shape, f"{what}: {got.shape} != {want.shape}"
     np.testing.assert_allclose(got, want, atol=atol, rtol=rtol, err_msg=what)
+
+
+def batch_inputs(cfg, seed=0):
+    """A training batch with padding in every mask; row 0 is a cover row,
+    so its hints (and the tokenizer's STE) reach the loss."""
+    text_m = np.ones((B, LT), np.int32)
+    text_m[1, 5:] = 0
+    lyric_m = np.ones((B, LL), np.int32)
+    lyric_m[0, 6:] = 0
+    att = np.ones((B, T), np.int32)
+    att[1, 15:] = 0
+    return dict(
+        hidden_states=randn(seed, B, T, 64),
+        attention_mask=att,
+        text_hidden_states=randn(seed + 1, B, LT, cfg.text_hidden_dim),
+        text_attention_mask=text_m,
+        lyric_hidden_states=randn(seed + 2, B, LL, cfg.text_hidden_dim),
+        lyric_attention_mask=lyric_m,
+        refer_audio_packed=randn(seed + 3, B, RF, 64, scale=0.5),
+        refer_order_mask=np.arange(B, dtype=np.int32),
+        src_latents=randn(seed + 4, B, T, 64, scale=0.5),
+        chunk_masks=np.ones((B, T, 64), np.float32),
+        is_covers=np.array([1, 0], np.int32),
+    )
+
+
+def jax_draws(cfg, key, bsz, shape, cfg_ratio, discrete):
+    """The draws `acestep_tpu.models.dit.training_loss` takes from `key`."""
+    k_drop, k_noise, k_t = jax.random.split(key, 3)
+    keep = jax.random.uniform(k_drop, (bsz, 1, 1)) >= cfg_ratio
+    x1 = jax.random.normal(k_noise, shape, jnp.float32)
+    if discrete is not None:
+        pool = jnp.asarray(discrete, jnp.float32)
+        tt = pool[jax.random.randint(k_t, (bsz,), 0, pool.shape[0])]
+    else:
+        tt, _ = jdit.sample_t_r(k_t, bsz, data_proportion=cfg.data_proportion,
+                                timestep_mu=cfg.timestep_mu,
+                                timestep_sigma=cfg.timestep_sigma,
+                                use_meanflow=False)
+    return dict(keep=t(np.asarray(keep).reshape(bsz)), noise=t(x1),
+                t=t(np.asarray(tt)))
