@@ -12,9 +12,12 @@ so the exit code is non-zero and no result line is printed:
 3. kernels: K1 (flash attention), K4 (snake + conv stack) and the flash
    backward's K2 (dQ) and K3 (dK/dV) against their plain PyTorch versions
    at the shapes the main paths give them, with kernel, plain-version and
-   library times (CUDA events) and the bound the card's published peaks
-   set for the same work; K2/K3's limit is also held against controls
-   (the plain backward with a fault) that it must catch.
+   library times (CUDA events around calls queued behind a spin kernel,
+   so host cost does not enter: `cuda_ms`) and the bound the card's
+   published peaks set for the same work; K2/K3's limit is also held
+   against controls (the plain backward with a fault) that it must catch,
+   and both must give the same bits twice. K1 at (1, 750) also reports
+   host microseconds per call (`k1_host_us`).
 4. reference: a small model through the port's handler on the card (bf16,
    kernels) against the same weights on the CPU (fp32, plain versions);
    then one LoRA step of a small model, card against CPU: the loss and
@@ -43,6 +46,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import tempfile
 import time
@@ -51,6 +55,9 @@ from unittest import mock
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# clock cycles a second the timer's spin kernel is sized with (an H100's
+# boost clock, 1.98 GHz, rounded up: a longer spin only waits longer)
+SPIN_CYCLES_PER_S = 2.0e9
 
 # Tolerances, scaled by max(1, max|ref|); the reference is the plain
 # version in fp32 from the same bf16 inputs. Both kernels round operands to
@@ -96,20 +103,115 @@ def emit(**record) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of `fn` over `reps` back-to-back calls."""
+    """Mean device time of `fn` over `reps` back-to-back calls, with the
+    host out of the reading.
+
+    A spin kernel (`torch.cuda._sleep`) holds the device while the host
+    enqueues the start event, all `reps` calls and the end event behind
+    it, so the calls run back to back on the device whatever each costs on
+    the host (a wrapper's checks and ctypes call, PyTorch's dispatcher).
+    The spin is sized from the host's own enqueue time. The reading holds
+    if the start event had not fired when the host was done enqueueing, or
+    if a call takes the device more than twice the host's cost of one call
+    (then the host stays ahead once the spin has covered the first call,
+    and a host blocked on a full launch queue does not starve the device).
+    Otherwise it is taken again with twice the spin. The launches of the
+    `reps` calls must fit the device's launch queue (about a thousand):
+    past it the host waits behind the spin, and the check fails.
+    """
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    one_call_s = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        one_call_s = min(one_call_s, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    end.record()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = int(2 * host_s * SPIN_CYCLES_PER_S) + 1_000_000
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        caught_up = start.query()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        if not caught_up or ms > 2e3 * one_call_s:
+            return ms
+        cycles *= 2
+    raise AssertionError("cuda_ms: the device caught up with the host four "
+                         "times; the reading would include host time")
+
+
+def host_us_per_call(fn, calls: int = 1000, chunk: int = 100) -> float:
+    """Host microseconds per call of `fn` (its enqueue cost): `calls` calls
+    in chunks timed with `time.perf_counter` and no synchronise inside a
+    chunk; the device is drained between chunks, untimed, so its queue
+    never fills and blocks the host. The median chunk, so that a chunk the
+    shared host preempted does not set the reading."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(calls // chunk):
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            fn()
+        per_call.append((time.perf_counter() - t0) / chunk)
+        torch.cuda.synchronize()
+    return statistics.median(per_call) * 1e6
+
+
+def k1_host_us(q, k, v, window) -> dict:
+    """K1's host microseconds per call (`host_us_per_call`), read in
+    alternating rounds in one process: its wrapper (checks, two
+    `torch.empty`, the ctypes call); its C entry alone with its arguments
+    made once (the tensor-map encodes and the launch); and K2's C entry at
+    the same shape, a plain launch of fewer arguments than PR 2's K1 entry,
+    which did nothing else. `encode_bound` = c_entry - plain_launch is thus
+    at least what the TMA design adds to each call."""
+    import torch
+
+    from acestep_torch.ops import _build
+    from acestep_torch.ops import flash_attention as fa
+
+    lib = _build.library()
+    B, L, Hq, D = q.shape
+    w = -1 if window is None else window
+    stream = torch.cuda.current_stream().cuda_stream
+    out, dq = torch.empty_like(q), torch.empty_like(q)
+    lse = torch.zeros((B, Hq, L), dtype=torch.float32, device="cuda")
+    fwd = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           lse.data_ptr(), B, L, L, Hq, k.shape[2], *q.stride()[:3],
+           *k.stride()[:3], *v.stride()[:3], w, D ** -0.5, stream)
+    dq_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(),
+               lse.data_ptr(), lse.data_ptr(), dq.data_ptr(), B, L, L, Hq,
+               k.shape[2], w, D ** -0.5, stream)
+    calls = {
+        "wrapper": lambda: fa.flash_attention_cuda(q, k, v, window),
+        "c_entry": lambda: lib.acestep_flash_fwd(*fwd),
+        "plain_launch": lambda: lib.acestep_flash_bwd_dq(*dq_args)}
+    _build.check(calls["c_entry"](), "acestep_flash_fwd")
+    _build.check(calls["plain_launch"](), "acestep_flash_bwd_dq")
+    rounds = {name: [] for name in calls}
+    for r in range(6):
+        for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            rounds[name].append(host_us_per_call(calls[name]))
+    us = {name: statistics.median(x) for name, x in rounds.items()}
+    us["encode_bound"] = us["c_entry"] - us["plain_launch"]
+    return {**us, "rounds": rounds}
 
 
 def bound(flops: float, nbytes: float):
@@ -147,7 +249,9 @@ def phase_build():
          nvcc_seconds=_build.build_seconds, ptxas=ptxas)
 
 
-def _k1_case(B, L, window, seed):
+def _k1_case(B, L, window, seed, host=False):
+    """K1 against its plain version; with `host`, also its host
+    microseconds per call (`k1_host_us`)."""
     import torch
     import torch.nn.functional as F
 
@@ -188,6 +292,8 @@ def _k1_case(B, L, window, seed):
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), 20),
         bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
+    if host:
+        rec["host_us_per_call"] = k1_host_us(q, k, v, window)
     emit(phase="kernels", **rec)
     return rec
 
@@ -214,6 +320,7 @@ def _k4_units(C, seed):
 def _k4_case(N, L, C, seed):
     import torch
 
+    from acestep_torch.ops import _build
     from acestep_torch.ops import snake_conv as sc
 
     units = _k4_units(C, seed)
@@ -234,9 +341,23 @@ def _k4_case(N, L, C, seed):
         flops = 48.0 * C * C * N * L
         nbytes = 2 * 2 * N * L * C + 3 * 8 * C * C * 2
         bound_ms, bound_by = bound(flops, nbytes)
+        # the kernel alone, through the C entry point the wrapper calls: the
+        # wrapper packs the weights anew on each call (~60 small launches),
+        # which would overflow the launch queue behind cuda_ms's spin
+        lib = _build.library()
+        params = sc.pack_params(units, x.device)
+        out = torch.empty_like(x)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def k4():
+            return lib.acestep_snake_conv(
+                x.data_ptr(), out.data_ptr(), *[p.data_ptr() for p in params],
+                N, L, C, stream)
+
+        _build.check(k4(), "acestep_snake_conv")
         rec = dict(
             kernel="K4", N=N, L=L, C=C, max_abs_err=err, max_rel_err=rel,
-            kernel_ms=cuda_ms(lambda: sc.res_unit_stack_cuda(units, x), 20),
+            kernel_ms=cuda_ms(k4, 20),
             plain_ms=cuda_ms(lambda: sc.res_unit_stack_plain(units, x), 3, 1),
             library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
             flops=flops, bytes=nbytes)
@@ -261,6 +382,11 @@ def _k23_case(B, L, window, seed):
                      .to(torch.bfloat16) for h in (Hq, Hkv, Hkv, Hq))
     out, lse = fa.flash_attention_cuda(q, k, v, window)
     got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, window)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, window)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K2/K3 B={B} L={L} W={window}: two runs "
+                             f"differ; the kernels must be deterministic")
+    del again
     qf, kf, vf, of, df = (x.float() for x in (q, k, v, out, dout))
     ref = fa.flash_attention_bwd_plain(qf, kf, vf, of, lse, df, window)
     # the controls: delta = rowsum(dO * O) is 0 when O is; the second head
@@ -352,7 +478,7 @@ def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
-    k1 = [_k1_case(1, 750, None, 1), _k1_case(1, 750, 128, 2),
+    k1 = [_k1_case(1, 750, None, 1, host=True), _k1_case(1, 750, 128, 2),
           _k1_case(2, 1500, None, 3), _k1_case(2, 1500, 128, 4),
           _k1_case(1, 1001, 128, 5), _k1_case(1, 1001, None, 6)]
     k4 = [_k4_case(4, 491520, 128, 7), _k4_case(4, 245760, 128, 8),

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Where a full-width LoRA training step of the PyTorch port spends its time,
-on one NVIDIA GPU.
+"""Where a full-width LoRA training step, or a text2music request, of the
+PyTorch port spends its time, on one NVIDIA GPU.
 
     python3 scripts/torch_train_profile.py [--frames 3000] [--steps 3]
+    python3 scripts/torch_train_profile.py --text2music [--duration 60]
+        [--batch 1] [--steps 3]
 
 Builds the full-width DiT (`DiTConfig()`, bf16, seeded random weights) and
 a rank-16 LoRA adapter on all 11 targets (fp32), runs two warm-up steps of
@@ -12,8 +14,9 @@ a rank-16 LoRA adapter on all 11 targets (fp32), runs two warm-up steps of
 one JSON line:
 
 - `step_s`: median seconds per step, untraced;
-- `device_busy_share`: summed kernel time over the traced wall time (one
-  stream, so kernels do not overlap); `1 - busy` is the device idle share;
+- `device_busy_share`: the time in which a kernel ran (the union of the
+  kernels' intervals) over the traced wall time; `1 - busy` is the device
+  idle share;
 - `kernels_per_step` and kernel milliseconds per step by category: the
   port's kernels (K1 forward, K2 dQ, K3 dK/dV), matrix products (cuBLAS /
   CUTLASS), and everything else;
@@ -28,6 +31,22 @@ one JSON line:
   and 8 for K3; and `matmul_share_of_bf16_peak`, the matrix products'
   FLOPs over what the card's dense bf16 peak (989 TFLOP/s) does in their
   kernel time.
+
+With `--text2music` it builds the full-width turbo handler
+(`DiTConfig.turbo()`, `VAEConfig()`, bf16, seeded random weights), runs two
+warm-up requests of `--duration` seconds at `--batch` through
+`acestep_torch.inference.generate_music`, times `--steps` more with the
+host clock, traces one with `torch.profiler` and prints one JSON line:
+`request_s` (median, untraced), `device_busy_ms`, `device_busy_share` and
+its complement `device_idle_share` over the traced request (the tracer's
+host overhead lengthens it), kernel milliseconds by
+category (K1, K4, matrix products, other), and for the two device stages,
+the diffusion (8 `dit_decoder` steps) and the VAE decode: each stage's
+wall time in the trace, its busy share, its kernel milliseconds by
+category, and `k1_share_of_stage` (K1's kernel time over the stage's wall
+time), with the inputs as the path leaves them. A stage's window runs from
+its host call to a synchronise at its end, added by this script, so the
+kernels inside it are the stage's own.
 
 It needs a CUDA device and prints the card's name and power limit first.
 """
@@ -46,6 +65,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CATEGORIES = (
     ("K1 flash fwd", ("flash_fwd_kernel",)),
+    ("K4 snake conv", ("snake_conv_kernel",)),
     ("K2 flash bwd dq", ("flash_bwd_dq_kernel",)),
     ("K3 flash bwd dkv", ("flash_bwd_dkv_kernel",)),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "wgmma")),
@@ -63,9 +83,131 @@ def category(name: str) -> str:
     return "other"
 
 
-def main() -> None:
+def device_events(prof):
+    """The trace's device activity as (start_us, end_us, name): kernels,
+    copies and fills. The device-side ranges that `record_function`
+    annotations leave (the stage windows below) are not work, and are
+    left out."""
+    from torch.autograd import DeviceType
+
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation)
+
+
+def busy_us(kernels, lo=None, hi=None) -> float:
+    """Microseconds in which at least one kernel ran, inside [lo, hi]."""
+    total, cur_a, cur_b = 0.0, None, None
+    for a, b, _ in kernels:
+        if lo is not None:
+            a, b = max(a, lo), min(b, hi)
+        if b <= a:
+            continue
+        if cur_b is None or a > cur_b:
+            if cur_b is not None:
+                total += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    if cur_b is not None:
+        total += cur_b - cur_a
+    return total
+
+
+def text2music(args) -> None:
+    import tempfile
+
     import torch
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from acestep_torch import inference
+    from acestep_torch.config import DiTConfig, VAEConfig
+    from acestep_torch.pipeline.handler import AceStepHandler
+
+    handler = AceStepHandler(DiTConfig.turbo(), VAEConfig(),
+                             dtype=torch.bfloat16)
+    handler.initialize_service(seed=0)
+
+    def stage(name, fn):
+        def run(*a, **kw):
+            with record_function("stage:" + name):
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+            return out
+        return run
+
+    handler._generate_latents = stage("diffusion", handler._generate_latents)
+    handler.decode_latents = stage("vae_decode", handler.decode_latents)
+    params = inference.GenerationParams(
+        caption="upbeat synthpop, female vocals, 120 bpm",
+        lyrics="[verse]\nneon lights across the bay\n[chorus]\nwe run",
+        duration=args.duration, seed=22, thinking=False)
+    with tempfile.TemporaryDirectory() as out_dir:
+        config = inference.GenerationConfig(batch_size=args.batch,
+                                            use_random_seed=False,
+                                            output_dir=out_dir)
+
+        def request():
+            res = inference.generate_music(handler, None, params, config)
+            if not res.success:
+                raise RuntimeError(f"generate_music failed: {res.error}")
+            return res
+
+        for _ in range(2):
+            request()
+        times = []
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            request()
+            times.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = request()
+            traced_wall = time.perf_counter() - t0
+    kernels = device_events(prof)
+    windows = {e.name[len("stage:"):]: (e.time_range.start, e.time_range.end)
+               for e in prof.events() if e.device_type == DeviceType.CPU
+               and e.name.startswith("stage:")}
+
+    def split(lo=None, hi=None):
+        """Kernel microseconds by category inside [lo, hi] (clipped)."""
+        by_cat = {}
+        for a, b, name in kernels:
+            if lo is not None:
+                a, b = max(a, lo), min(b, hi)
+            if b > a:
+                by_cat[category(name)] = by_cat.get(category(name), 0.0) \
+                    + b - a
+        return by_cat
+
+    total = split()
+    stages = {}
+    for name, (lo, hi) in windows.items():
+        by_cat = split(lo, hi)
+        wall_us = hi - lo
+        stages[name] = {
+            "wall_ms": wall_us / 1e3,
+            "device_busy_share": busy_us(kernels, lo, hi) / wall_us,
+            "kernel_ms": {k: v / 1e3 for k, v in by_cat.items()},
+            "k1_share_of_stage": by_cat.get("K1 flash fwd", 0.0) / wall_us}
+    busy = busy_us(kernels) / 1e6 / traced_wall
+    print(json.dumps({
+        "mode": "text2music", "duration": args.duration,
+        "batch": args.batch, "requests": args.steps,
+        "request_s": statistics.median(times), "traced_request_s": traced_wall,
+        "device_busy_ms": busy * traced_wall * 1e3,
+        "device_busy_share": busy, "device_idle_share": 1.0 - busy,
+        "kernels": len(kernels),
+        "kernel_ms": {k: v / 1e3 for k, v in total.items()},
+        "stages": stages,
+        "time_costs": res.extra_outputs["time_costs"],
+        "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def main() -> None:
+    import torch
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -79,6 +221,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=3000)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--text2music", action="store_true",
+                    help="trace a text2music request instead of a step")
+    ap.add_argument("--duration", type=float, default=60.0)
+    ap.add_argument("--batch", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_train_profile: no CUDA device is available")
@@ -86,6 +232,9 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip(),
           flush=True)
+    if args.text2music:
+        text2music(args)
+        return
 
     cfg = DiTConfig()
     gen = torch.Generator("cuda").manual_seed(0)
@@ -135,13 +284,11 @@ def main() -> None:
         for _ in range(args.steps):
             run()
         traced_wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = device_events(prof)
     by_cat, by_name = {}, {}
-    for e in kernels:
-        us = e.time_range.end - e.time_range.start
-        by_cat[category(e.name)] = by_cat.get(category(e.name), 0.0) + us
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-    busy_us = sum(by_cat.values())
+    for a, b, name in kernels:
+        by_cat[category(name)] = by_cat.get(category(name), 0.0) + b - a
+        by_name[name] = by_name.get(name, 0.0) + b - a
     n = args.steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     matmul_ms = by_cat.get("matmul", 0.0) / 1e3 / n
@@ -149,7 +296,7 @@ def main() -> None:
         "frames": args.frames, "patches": patches,
         "steps": n, "step_s": statistics.median(times),
         "traced_step_s": traced_wall / n,
-        "device_busy_share": busy_us / 1e6 / traced_wall,
+        "device_busy_share": busy_us(kernels) / 1e6 / traced_wall,
         "kernels_per_step": len(kernels) / n,
         "kernel_ms_per_step": {k: v / 1e3 / n for k, v in by_cat.items()},
         "top": [{"name": k[:120], "ms_per_step": v / 1e3 / n}
