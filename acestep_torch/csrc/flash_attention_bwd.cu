@@ -21,17 +21,27 @@
 // the stores. Full attention at B = 1, L = 1500 is compute-bound (~28 us
 // for K2, ~37 us for K3); a banded layer (W = 128) is memory-bound.
 //
-// K2 (correct first, mma.sync m16n8k16 with fp32 accumulation): one block
-// of 4 warps per (64-row query tile, query head, batch), K1's old
-// geometry. Each warp keeps its 16 query rows of Q and dO as A fragments in
-// registers and dQ in fp32 accumulators until the one store. It loops over
-// the 32-key tiles that meet [q0 - W, q1 + W], staged in shared memory; S
-// and dP are recomputed there, dS is made in registers and repacked as the
-// A operand of dS K (the C-to-A identity of common.cuh). dQ is owned by one
-// block: no atomics. Left on the table: it re-reads each K/V tile once per
-// query head of a group; K's B fragments along the key axis are gathered
-// from two 16-bit shared loads each; no TMA pipelining; mma.sync instead
-// of wgmma.
+// K2 (TMA + wgmma, warp-specialised; K3's design mirrored): one block per
+// (64 queries, query head, batch), units head-fastest so the G heads of a
+// KV group read the same K/V tiles at about the same time, two blocks an
+// SM (384 blocks at B = 1, L = 1500). Its producer warp loads the block's
+// Q and dO tiles once by TMA, then streams the 64-key K and V tiles of the
+// band through a ring of two stages. Its consumer warpgroup keeps dQ (64 x
+// 128, fp32) in registers until the one store. Per tile it computes S =
+// Q K^T and dP = dO V^T with wgmma (all operands K-major in shared
+// memory), makes P with exp2 from the lse in the log2 domain (the scale
+// folded into the FMA), dS = P (dP - delta) scale selected to 0 outside
+// the band and the real lengths, repacks dS to bf16 as the A operand of
+// dQ += dS K (K read MN-major from the same TMA tile) and waits for that
+// product before the next tile: the other block on the SM fills the gap.
+// dQ is owned by one block: no atomics, the same bits run to run.
+// Measured on an H100 (PERF.md) and not kept, each about as fast or
+// slower: issuing the next tile's S and dP while dQ += dS K runs (both
+// sets of registers live, so one block an SM at 178 registers: 0.0779
+// ms at full B = 1, L = 1500 against 0.0701 in one run), and a KV
+// group's two query heads in one block sharing each K/V tile (two
+// consumer warpgroups, one block an SM: within 3%, except 9-12% slower
+// banded at B = 1, L = 1500).
 //
 // K3 (TMA + wgmma, warp-specialised, the design of K1 in
 // flash_attention.cu): one block per (64 keys, KV head, batch). Its
@@ -66,28 +76,12 @@
 namespace {
 
 namespace hp = acestep::hopper;
-using acestep::load_u32;
-using acestep::mma_bf16_16816;
 using acestep::pack_bf16;
 using bf16 = __nv_bfloat16;
 
 constexpr int D = 128;         // head dim
-constexpr int THREADS = 128;   // 4 warps
-constexpr int PAD = D + 8;     // padded smem rows: conflict-free fragments
-
-constexpr int DQ_BQ = 64;      // K2: query rows per block (16 per warp)
-constexpr int DQ_BK = 32;      // K2: keys per tile
-
 constexpr int KV_STAGES = 3;   // K3: stages of the query-tile ring
 constexpr float LOG2E = 1.4426950408889634f;
-
-// Two bf16 values from two addresses -> one register, the first in the
-// low half (the lower k index of an mma fragment pair).
-__device__ __forceinline__ uint32_t pack_pair(const bf16* lo, const bf16* hi) {
-  const uint32_t a = *reinterpret_cast<const uint16_t*>(lo);
-  const uint32_t b = *reinterpret_cast<const uint16_t*>(hi);
-  return a | (b << 16);
-}
 
 // Tiles of `tile` positions that meet [lo_pos - W, hi_pos + W] inside
 // [0, n); last < first when none does.
@@ -103,153 +97,205 @@ __device__ __forceinline__ void band_tiles(int lo_pos, int hi_pos, int n,
   last = hi >= lo ? hi / tile : first - 1;
 }
 
-__device__ __forceinline__ bool in_band(int i, int j, int window) {
-  return window < 0 || abs(i - j) <= window;
-}
-
 // ---------------------------------------------------------------- K2: dQ
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// One consumer warpgroup and one producer warp, two blocks an SM (ptxas
+// may use up to 204 registers a thread; the kernel needs fewer).
+struct Dq {
+  static constexpr int STAGES = 2;                       // K/V ring
+  static constexpr int THREADS = 128 + 32;
+  static constexpr int BLOCKS_PER_SM = 2;
+  static constexpr int TILE = 64 * D * 2;                // 64 x 128 bf16
+  static constexpr int O_OFF = TILE;                     // after the Q tile
+  static constexpr int K_OFF = 2 * TILE;                 // the K/V ring
+  static constexpr int V_OFF = K_OFF + STAGES * TILE;
+  static constexpr int SMEM = V_OFF + STAGES * TILE + 1024;  // + align
+};
+
+__global__ void __launch_bounds__(Dq::THREADS, Dq::BLOCKS_PER_SM)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap omap,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
                     int Lq, int Lk, int Hq, int Hkv, int window, float scale) {
-  __shared__ __align__(16) bf16 sK[DQ_BK][PAD];
-  __shared__ __align__(16) bf16 sV[DQ_BK][PAD];
+  using C = Dq;
+  constexpr int TILE = C::TILE, STAGES = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t kv_full[STAGES];
+  __shared__ __align__(8) uint64_t kv_empty[STAGES];
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * DQ_BQ;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const long long qrow = (long long)Hq * D;    // (B, L, H, D) contiguous
-  const long long krow = (long long)Hkv * D;
-
-  // Q and dO rows of this warp as A fragments; rows past Lq are zero.
-  uint32_t qf[D / 16][4], of[D / 16][4];
-  {
-    const long long base = (long long)b * Lq * qrow + (long long)h * D;
-    const bf16* q0p = q + base + r0 * qrow;
-    const bf16* q1p = q + base + r1 * qrow;
-    const bf16* o0p = dout + base + r0 * qrow;
-    const bf16* o1p = dout + base + r1 * qrow;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      qf[kk][0] = r0 < Lq ? load_u32(q0p + c) : 0u;
-      qf[kk][1] = r1 < Lq ? load_u32(q1p + c) : 0u;
-      qf[kk][2] = r0 < Lq ? load_u32(q0p + c + 8) : 0u;
-      qf[kk][3] = r1 < Lq ? load_u32(q1p + c + 8) : 0u;
-      of[kk][0] = r0 < Lq ? load_u32(o0p + c) : 0u;
-      of[kk][1] = r1 < Lq ? load_u32(o1p + c) : 0u;
-      of[kk][2] = r0 < Lq ? load_u32(o0p + c + 8) : 0u;
-      of[kk][3] = r1 < Lq ? load_u32(o1p + c + 8) : 0u;
-    }
-  }
-  const long long row_base = ((long long)b * Hq + h) * Lq;
-  const float lse0 = r0 < Lq ? lse[row_base + r0] : 0.f;
-  const float lse1 = r1 < Lq ? lse[row_base + r1] : 0.f;
-  const float del0 = r0 < Lq ? delta[row_base + r0] : 0.f;
-  const float del1 = r1 < Lq ? delta[row_base + r1] : 0.f;
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
+  // units run head-fastest over the G query heads of the KV head, so the
+  // blocks that read the same K/V tiles run at about the same time
+  const int G = Hq / Hkv;
+  const int b = blockIdx.z, hk = blockIdx.y;
+  const int h = hk * G + blockIdx.x % G;
+  const int q0 = (blockIdx.x / G) * 64;
   int kt_first, kt_last;
-  band_tiles(q0, q0 + DQ_BQ - 1, Lk, window, DQ_BK, kt_first, kt_last);
-  const bf16* kb = k + (long long)b * Lk * krow + (long long)hk * D;
-  const bf16* vb = v + (long long)b * Lk * krow + (long long)hk * D;
+  band_tiles(q0, q0 + 63, Lk, window, 64, kt_first, kt_last);
+  const int n_tiles = kt_last - kt_first + 1;
 
-  for (int kt = kt_first; kt <= kt_last; ++kt) {
-    const int kbase = kt * DQ_BK;
-    __syncthreads();   // every warp is done with the previous tile
-    for (int c = threadIdx.x; c < DQ_BK * (D / 8); c += THREADS) {
-      const int row = c / (D / 8), col = (c % (D / 8)) * 8;
-      const int key = kbase + row;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (key < Lk) {
-        kv4 = *reinterpret_cast<const uint4*>(kb + key * krow + col);
-        vv4 = *reinterpret_cast<const uint4*>(vb + key * krow + col);
-      }
-      *reinterpret_cast<uint4*>(&sK[row][col]) = kv4;
-      *reinterpret_cast<uint4*>(&sV[row][col]) = vv4;
+  if (threadIdx.x == 0) {
+    hp::mbar_init(&q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hp::mbar_init(&kv_full[s], 1);
+      hp::mbar_init(&kv_empty[s], 4);     // one arrival per consumer warp
     }
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for 16 rows x 32 keys
-    float s[DQ_BK / 8][4], dp[DQ_BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < DQ_BK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < DQ_BK / 8; ++j) {
-        uint32_t bk[2], bv[2];
-        bk[0] = load_u32(&sK[j * 8 + g][kk * 16 + 2 * t]);
-        bk[1] = load_u32(&sK[j * 8 + g][kk * 16 + 2 * t + 8]);
-        bv[0] = load_u32(&sV[j * 8 + g][kk * 16 + 2 * t]);
-        bv[1] = load_u32(&sV[j * 8 + g][kk * 16 + 2 * t + 8]);
-        mma_bf16_16816(s[j], qf[kk], bk);
-        mma_bf16_16816(dp[j], of[kk], bv);
-      }
-    }
-
-    // P from lse, selected to 0 outside the band / real lengths; dS into s
-#pragma unroll
-    for (int j = 0; j < DQ_BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = kbase + j * 8 + 2 * t + e;
-        const bool kv = key < Lk;
-        const bool v0 = kv && r0 < Lq && in_band(r0, key, window);
-        const bool v1 = kv && r1 < Lq && in_band(r1, key, window);
-        const float p0 = v0 ? expf(s[j][e] * scale - lse0) : 0.f;
-        const float p1 = v1 ? expf(s[j][2 + e] * scale - lse1) : 0.f;
-        s[j][e] = p0 * (dp[j][e] - del0) * scale;
-        s[j][2 + e] = p1 * (dp[j][2 + e] - del1) * scale;
-      }
-    }
-
-    // dQ += dS K: dS (bf16) straight from the accumulators; K's B
-    // fragments run along the key axis
-#pragma unroll
-    for (int kk = 0; kk < DQ_BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int kr = kk * 16 + 2 * t;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const int col = j * 8 + g;
-        uint32_t bfrag[2];
-        bfrag[0] = pack_pair(&sK[kr][col], &sK[kr + 1][col]);
-        bfrag[1] = pack_pair(&sK[kr + 8][col], &sK[kr + 9][col]);
-        mma_bf16_16816(acc[j], a, bfrag);
-      }
-    }
+    hp::fence_barrier_init();
   }
+  __syncthreads();
 
-  if (r0 < Lq) {
-    bf16* op = dq + ((long long)b * Lq + r0) * qrow + (long long)h * D;
+  if (threadIdx.x >= 128) {
+    // ---- producer warp: one thread issues every load
+    if (threadIdx.x == 128) {
+      hp::mbar_arrive_expect_tx(&q_full, 2 * TILE);
+      uint8_t* od = smem + C::O_OFF;
+      hp::tma_load_4d(smem, &qmap, &q_full, 0, h, q0, b);
+      hp::tma_load_4d(smem + TILE / 2, &qmap, &q_full, 64, h, q0, b);
+      hp::tma_load_4d(od, &omap, &q_full, 0, h, q0, b);
+      hp::tma_load_4d(od + TILE / 2, &omap, &q_full, 64, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        hp::mbar_wait(&kv_empty[s], ((i / STAGES) & 1) ^ 1);
+        hp::mbar_arrive_expect_tx(&kv_full[s], 2 * TILE);
+        const int key0 = (kt_first + i) * 64;
+        uint8_t* kd = smem + C::K_OFF + s * TILE;
+        uint8_t* vd = smem + C::V_OFF + s * TILE;
+        hp::tma_load_4d(kd, &kmap, &kv_full[s], 0, hk, key0, b);
+        hp::tma_load_4d(kd + TILE / 2, &kmap, &kv_full[s], 64, hk, key0, b);
+        hp::tma_load_4d(vd, &vmap, &kv_full[s], 0, hk, key0, b);
+        hp::tma_load_4d(vd + TILE / 2, &vmap, &kv_full[s], 64, hk, key0, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup: the 64 query rows, dQ in registers
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+    const uint8_t* sq = smem;
+    const uint8_t* so = smem + C::O_OFF;
+    const float scale_log2 = scale * LOG2E;
+    // the keys each of this thread's two rows sees: [lo, hi] (inclusive;
+    // none for a row past Lq)
+    const int lo0 = window >= 0 ? max(0, r0 - window) : 0;
+    const int lo1 = window >= 0 ? max(0, r1 - window) : 0;
+    const int hi0 = r0 >= Lq ? -1
+                    : window >= 0 ? min(Lk - 1, r0 + window) : Lk - 1;
+    const int hi1 = r1 >= Lq ? -1
+                    : window >= 0 ? min(Lk - 1, r1 + window) : Lk - 1;
+    const long long row_base = ((long long)b * Hq + h) * Lq;
+    const float l0 = r0 < Lq ? lse[row_base + r0] * LOG2E : 0.f;
+    const float l1 = r1 < Lq ? lse[row_base + r1] * LOG2E : 0.f;
+    const float dl0 = r0 < Lq ? delta[row_base + r0] : 0.f;
+    const float dl1 = r1 < Lq ? delta[row_base + r1] : 0.f;
+
+    float dq_acc[64];
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(op + j * 8 + 2 * t) =
-          pack_bf16(acc[j][0], acc[j][1]);
-  }
-  if (r1 < Lq) {
-    bf16* op = dq + ((long long)b * Lq + r1) * qrow + (long long)h * D;
+    for (int i = 0; i < 64; ++i) dq_acc[i] = 0.f;
+    float sacc[32], dpacc[32];      // S, dP; then P, dS in fp32
+    uint32_t sa[4][4];              // dS as bf16 A operands
+
+    // S = Q K^T and dP = dO V^T (64 queries x 64 keys) of tile i
+    auto issue_sdp = [&](int i) {
+      const int s = i % STAGES;
+      hp::mbar_wait(&kv_full[s], (i / STAGES) & 1);
+      const uint8_t* sk = smem + C::K_OFF + s * TILE;
+      const uint8_t* sv = smem + C::V_OFF + s * TILE;
+      hp::fence_regs(sacc);
+      hp::fence_regs(dpacc);
+      hp::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(op + j * 8 + 2 * t) =
-          pack_bf16(acc[j][2], acc[j][3]);
+      for (int kk = 0; kk < D / 16; ++kk)
+        hp::wgmma_m64n64k16_ss(sacc, hp::desc_kmajor(sq, kk),
+                               hp::desc_kmajor(sk, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hp::wgmma_m64n64k16_ss(dpacc, hp::desc_kmajor(so, kk),
+                               hp::desc_kmajor(sv, kk), kk > 0);
+      hp::wgmma_commit();
+    };
+    // dQ += dS K of tile i (K MN-major: the keys are the reduction)
+    auto issue_dq = [&](int i) {
+      const uint8_t* sk = smem + C::K_OFF + (i % STAGES) * TILE;
+      hp::fence_regs(dq_acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hp::fence_regs(sa[kk]);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hp::wgmma_m64n128k16_rs_mn(dq_acc, sa[kk], hp::desc_mnmajor(sk, kk));
+      hp::wgmma_commit();
+    };
+    // dS = P (dP - delta) scale of tile i, P = exp2(S scale log2(e) - lse
+    // log2(e)) selected to 0 outside the band and the real lengths (a row
+    // with no valid key has lse = -1e30: exp2 overflows, the select drops
+    // it), rounded to bf16 as the A operands (accumulator columns
+    // 16kk..16kk+15 are A operand kk)
+    auto make_ds = [&](int i) {
+      const int kbase = (kt_first + i) * 64;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = kbase + j * 8 + 2 * t + e;
+          const float e0 =
+              hp::exp2_approx(fmaf(sacc[4 * j + e], scale_log2, -l0));
+          const float e1 =
+              hp::exp2_approx(fmaf(sacc[4 * j + 2 + e], scale_log2, -l1));
+          const float p0 = key >= lo0 && key <= hi0 ? e0 : 0.f;
+          const float p1 = key >= lo1 && key <= hi1 ? e1 : 0.f;
+          ds[e] = p0 * (dpacc[4 * j + e] - dl0) * scale;
+          ds[2 + e] = p1 * (dpacc[4 * j + 2 + e] - dl1) * scale;
+        }
+        sa[j / 2][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+        sa[j / 2][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+    };
+    auto release = [&](int i) {   // this warp is done with K/V tile i
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&kv_empty[i % STAGES]);
+    };
+
+    // Every register a product reads or writes is fenced where the product
+    // is issued and where it is waited for (else ptxas serialises them).
+    // Tile i's dQ product is waited for before tile i + 1's S and dP are
+    // issued: with both in flight the kernel needs more registers than two
+    // blocks an SM leave it (see the note at the top).
+    hp::mbar_wait(&q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      issue_sdp(i);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(sacc);
+      hp::fence_regs(dpacc);
+      hp::fence_regs(dq_acc);
+      make_ds(i);
+      issue_dq(i);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dq_acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hp::fence_regs(sa[kk]);
+      release(i);
+    }
+
+    const long long qrow = (long long)Hq * D;
+    if (r0 < Lq) {
+      bf16* op = dq + ((long long)b * Lq + r0) * qrow + (long long)h * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(op + j * 8 + 2 * t) =
+            pack_bf16(dq_acc[4 * j], dq_acc[4 * j + 1]);
+    }
+    if (r1 < Lq) {
+      bf16* op = dq + ((long long)b * Lq + r1) * qrow + (long long)h * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(op + j * 8 + 2 * t) =
+            pack_bf16(dq_acc[4 * j + 2], dq_acc[4 * j + 3]);
+    }
   }
 }
 
@@ -517,7 +563,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // q, dout (B, Lq, Hq, 128) and k, v (B, Lk, Hkv, 128) bf16, contiguous;
 // lse, delta (B, Hq, Lq) fp32 contiguous; dq like q. window < 0 means full
-// attention. Returns cudaGetLastError().
+// attention. Returns 0 or a cudaError_t.
 extern "C" int acestep_flash_bwd_dq(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
@@ -525,12 +571,26 @@ extern "C" int acestep_flash_bwd_dq(const void* q, const void* k,
                                     int Hkv, int window, float scale,
                                     void* stream) {
   if (B == 0 || Lq == 0) return 0;
-  dim3 grid((Lq + DQ_BQ - 1) / DQ_BQ, Hq, B);
-  flash_bwd_dq_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), Lq, Lk, Hq, Hkv, window, scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Lk == 0)   // no key: the gradient is zero
+    return static_cast<int>(cudaMemsetAsync(
+        dq, 0, (size_t)B * Lq * Hq * D * sizeof(bf16), st));
+  const long long qrow = (long long)Hq * D, krow = (long long)Hkv * D;
+  CUtensorMap qm, km, vm, om;
+  int err = hp::encode_blhd(&qm, q, B, Lq, Hq, Lq * qrow, qrow, D);
+  if (err == 0) err = hp::encode_blhd(&km, k, B, Lk, Hkv, Lk * krow, krow, D);
+  if (err == 0) err = hp::encode_blhd(&vm, v, B, Lk, Hkv, Lk * krow, krow, D);
+  if (err == 0) err = hp::encode_blhd(&om, dout, B, Lq, Hq, Lq * qrow, qrow, D);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Dq::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Hq / Hkv) * ((Lq + 63) / 64), Hkv, B);
+  flash_bwd_dq_kernel<<<grid, Dq::THREADS, Dq::SMEM, st>>>(
+      qm, km, vm, om, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), Lq, Lk, Hq,
+      Hkv, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

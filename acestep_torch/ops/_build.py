@@ -41,8 +41,10 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, dk, dv, B, Lq, Lk, Hq, Hkv, window, scale,
     # stream
     "acestep_flash_bwd_dkv": [_VP] * 8 + [_I] * 6 + [_F, _VP],
-    # x, out, w7, wp, b7, bp, ea, ieb, N, L, C, stream
-    "acestep_snake_conv": [_VP] * 8 + [_I] * 3 + [_VP],
+    # x, out, scratch, w, b7, bp, ea, ieb, wmap, N, L, C, stream
+    "acestep_snake_conv": [_VP] * 9 + [_I] * 3 + [_VP],
+    # w, C, map_out
+    "acestep_snake_conv_encode": [_VP, _I, _VP],
 }
 
 

@@ -14,6 +14,7 @@ through `_composed_stack`: there is no backward kernel.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
@@ -56,29 +57,56 @@ def res_unit_stack_plain(units: Sequence, x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_params(units: Sequence, device):
-    """The three units' parameters in the kernel's layout: conv weights
-    bf16, transposed to (out, in) per tap; biases and the snake tables
-    exp(alpha), 1/(exp(beta) + 1e-9) in fp32."""
+    """The three units' parameters in the kernel's layout: the conv weights
+    as one bf16 (3, 8, C_out, C_in) tensor, taps 0-6 of the k=7 conv then
+    the k=1 conv, each transposed to (out, in); the biases (3, C) and the
+    snake tables exp(alpha), 1/(exp(beta) + 1e-9) (3, 2, C) in fp32."""
     def f32(t):
         return t.detach().to(device=device, dtype=torch.float32)
 
-    w7t = torch.stack([u.conv1.weight.detach().permute(2, 0, 1)
-                       for u in units]).to(device, torch.bfloat16)  # (3,7,C,C)
-    wpt = torch.stack([u.conv2.weight.detach()[:, :, 0]
-                       for u in units]).to(device, torch.bfloat16)  # (3,C,C)
+    w = torch.stack([torch.cat([u.conv1.weight.detach().permute(2, 0, 1),
+                                u.conv2.weight.detach().permute(2, 0, 1)])
+                     for u in units]).to(device, torch.bfloat16)
     b7 = torch.stack([f32(u.conv1.bias) for u in units])
     bp = torch.stack([f32(u.conv2.bias) for u in units])
     ea = torch.stack([torch.stack([f32(u.snake1.alpha).exp(),
                                    f32(u.snake2.alpha).exp()])
-                      for u in units])                                # (3,2,C)
+                      for u in units])
     ieb = torch.stack([torch.stack([1.0 / (f32(u.snake1.beta).exp() + 1e-9),
                                     1.0 / (f32(u.snake2.beta).exp() + 1e-9)])
                        for u in units])
-    return tuple(t.contiguous() for t in (w7t, wpt, b7, bp, ea, ieb))
+    return tuple(t.contiguous() for t in (w, b7, bp, ea, ieb))
+
+
+class Packed:
+    """`pack_params` of one stack on one device (`params`), and the
+    weights' tensor map once the kernel has asked for it (`wmap`). `key`
+    holds every parameter's data_ptr() and _version: another tensor, or an
+    in-place update (an optimizer step, `load_state_dict`, anything under
+    `torch.no_grad()`), changes it. A write through `.data` bumps no
+    version and is not seen; the port makes none."""
+
+    def __init__(self, key, params):
+        self.key, self.params, self.wmap = key, params, None
+
+
+def packed_params(units: Sequence, device) -> Packed:
+    """`pack_params`, cached on the stack's first unit until a parameter of
+    the three units changes."""
+    device = torch.device(device)
+    key = (device, tuple((p.data_ptr(), p._version)
+                         for u in units for p in u.parameters()))
+    cache = getattr(units[0], "_kernel_params", None)
+    if cache is None or cache.key != key:
+        cache = Packed(key, pack_params(units, device))
+        units[0]._kernel_params = cache
+    return cache
 
 
 def res_unit_stack_cuda(units: Sequence, x: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on `torch.cuda.current_stream()`."""
+    """Launch the kernel on `torch.cuda.current_stream()`: one launch at
+    C <= 64, one a unit at C = 128 and 256 (the residual carried between
+    them in an fp32 scratch buffer); counted once a call."""
     global launches
     from acestep_torch.ops import _build
 
@@ -98,18 +126,29 @@ def res_unit_stack_cuda(units: Sequence, x: torch.Tensor) -> torch.Tensor:
     if C not in KERNEL_CHANNELS:
         raise ValueError(f"res_unit_stack_cuda: C={C} not in "
                          f"{KERNEL_CHANNELS}")
-    params = pack_params(units, x.device)
-    for p in params:
+    packed = packed_params(units, x.device)
+    for p in packed.params:
         if p.shape[-1] != C:
             raise ValueError(f"res_unit_stack_cuda: parameters of width "
                              f"{p.shape[-1]} for C={C}")
     lib = _build.library()
+    scratch = None
+    if C >= 128:
+        if packed.wmap is None:
+            wmap = ctypes.create_string_buffer(128)
+            _build.check(lib.acestep_snake_conv_encode(
+                packed.params[0].data_ptr(), C, wmap),
+                "acestep_snake_conv_encode")
+            packed.wmap = wmap
+        scratch = torch.empty((2, B, L, C), dtype=torch.float32,
+                              device=x.device)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     launches += 1
-    err = lib.acestep_snake_conv(x.data_ptr(), out.data_ptr(),
-                                 *[p.data_ptr() for p in params],
-                                 B, L, C, stream)
+    err = lib.acestep_snake_conv(
+        x.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        *[p.data_ptr() for p in packed.params], packed.wmap, B, L, C, stream)
     _build.check(err, "acestep_snake_conv")
     return out
 

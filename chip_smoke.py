@@ -17,7 +17,9 @@ so the exit code is non-zero and no result line is printed:
    published peaks set for the same work; K2/K3's limit is also held
    against controls (the plain backward with a fault) that it must catch,
    and both must give the same bits twice. K1 at (1, 750) also reports
-   host microseconds per call (`k1_host_us`).
+   host microseconds per call (`k1_host_us`); K4 is timed through its C
+   entry and through its wrapper (`wrapper_ms`, weights packed once a
+   stack and cached).
 4. reference: a small model through the port's handler on the card (bf16,
    kernels) against the same weights on the CPU (fp32, plain versions);
    then one LoRA step of a small model, card against CPU: the loss and
@@ -177,11 +179,8 @@ def host_us_per_call(fn, calls: int = 1000, chunk: int = 100) -> float:
 def k1_host_us(q, k, v, window) -> dict:
     """K1's host microseconds per call (`host_us_per_call`), read in
     alternating rounds in one process: its wrapper (checks, two
-    `torch.empty`, the ctypes call); its C entry alone with its arguments
-    made once (the tensor-map encodes and the launch); and K2's C entry at
-    the same shape, a plain launch of fewer arguments than PR 2's K1 entry,
-    which did nothing else. `encode_bound` = c_entry - plain_launch is thus
-    at least what the TMA design adds to each call."""
+    `torch.empty`, the ctypes call) and its C entry alone with its
+    arguments made once (the tensor-map encodes and the launch)."""
     import torch
 
     from acestep_torch.ops import _build
@@ -191,26 +190,20 @@ def k1_host_us(q, k, v, window) -> dict:
     B, L, Hq, D = q.shape
     w = -1 if window is None else window
     stream = torch.cuda.current_stream().cuda_stream
-    out, dq = torch.empty_like(q), torch.empty_like(q)
+    out = torch.empty_like(q)
     lse = torch.zeros((B, Hq, L), dtype=torch.float32, device="cuda")
     fwd = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            lse.data_ptr(), B, L, L, Hq, k.shape[2], *q.stride()[:3],
            *k.stride()[:3], *v.stride()[:3], w, D ** -0.5, stream)
-    dq_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(),
-               lse.data_ptr(), lse.data_ptr(), dq.data_ptr(), B, L, L, Hq,
-               k.shape[2], w, D ** -0.5, stream)
     calls = {
         "wrapper": lambda: fa.flash_attention_cuda(q, k, v, window),
-        "c_entry": lambda: lib.acestep_flash_fwd(*fwd),
-        "plain_launch": lambda: lib.acestep_flash_bwd_dq(*dq_args)}
+        "c_entry": lambda: lib.acestep_flash_fwd(*fwd)}
     _build.check(calls["c_entry"](), "acestep_flash_fwd")
-    _build.check(calls["plain_launch"](), "acestep_flash_bwd_dq")
     rounds = {name: [] for name in calls}
     for r in range(6):
         for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
             rounds[name].append(host_us_per_call(calls[name]))
     us = {name: statistics.median(x) for name, x in rounds.items()}
-    us["encode_bound"] = us["c_entry"] - us["plain_launch"]
     return {**us, "rounds": rounds}
 
 
@@ -341,23 +334,26 @@ def _k4_case(N, L, C, seed):
         flops = 48.0 * C * C * N * L
         nbytes = 2 * 2 * N * L * C + 3 * 8 * C * C * 2
         bound_ms, bound_by = bound(flops, nbytes)
-        # the kernel alone, through the C entry point the wrapper calls: the
-        # wrapper packs the weights anew on each call (~60 small launches),
-        # which would overflow the launch queue behind cuda_ms's spin
+        # the kernel alone, through the C entry point the wrapper calls,
+        # with its arguments made once; and through the wrapper, whose
+        # packed weights are cached on the units (two torch.empty a call)
         lib = _build.library()
-        params = sc.pack_params(units, x.device)
+        packed = sc.packed_params(units, x.device)
         out = torch.empty_like(x)
+        scratch = torch.empty((2, N, L, C), dtype=torch.float32,
+                              device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
+        args = (x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                *[p.data_ptr() for p in packed.params], packed.wmap)
 
         def k4():
-            return lib.acestep_snake_conv(
-                x.data_ptr(), out.data_ptr(), *[p.data_ptr() for p in params],
-                N, L, C, stream)
+            return lib.acestep_snake_conv(*args, N, L, C, stream)
 
         _build.check(k4(), "acestep_snake_conv")
         rec = dict(
             kernel="K4", N=N, L=L, C=C, max_abs_err=err, max_rel_err=rel,
             kernel_ms=cuda_ms(k4, 20),
+            wrapper_ms=cuda_ms(lambda: sc.res_unit_stack(units, x), 20),
             plain_ms=cuda_ms(lambda: sc.res_unit_stack_plain(units, x), 3, 1),
             library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
             flops=flops, bytes=nbytes)

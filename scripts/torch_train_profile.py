@@ -65,7 +65,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CATEGORIES = (
     ("K1 flash fwd", ("flash_fwd_kernel",)),
-    ("K4 snake conv", ("snake_conv_kernel",)),
+    ("K4 snake conv", ("snake_unit_kernel", "snake_conv_small_kernel")),
     ("K2 flash bwd dq", ("flash_bwd_dq_kernel",)),
     ("K3 flash bwd dkv", ("flash_bwd_dkv_kernel",)),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "wgmma")),

@@ -151,7 +151,12 @@ def _units(device, C, seed, std=0.05):
 
 
 @pytest.mark.parametrize("B,L,C", [
-    (2, 300, 128), (1, 1000, 256), (3, 77, 64), (1, 5, 16), (1, 197, 32)])
+    (2, 300, 128), (1, 1000, 256), (3, 77, 64), (1, 5, 16), (1, 197, 32),
+    # block edges: BL = 256 output samples at C = 128, 128 at C = 256; L
+    # inside one halo (39) and L = 1
+    (1, 255, 128), (1, 256, 128), (2, 257, 128), (1, 20, 128), (1, 1, 128),
+    (1, 127, 256), (1, 128, 256), (2, 129, 256), (1, 30, 256), (1, 1, 256),
+    (2, 1, 64), (1, 38, 32)])
 def test_snake_kernel_matches_plain(cuda_device, B, L, C):
     units = _units(cuda_device, C, seed=C + L)
     g = torch.Generator(cuda_device).manual_seed(L)
@@ -163,6 +168,24 @@ def test_snake_kernel_matches_plain(cuda_device, B, L, C):
     assert sc.launches == before + 1
     ref = sc.res_unit_stack_plain([u.float() for u in units], x.float())
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert _scaled_err(got, ref) < 2e-2
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_snake_kernel_repacks_after_an_update(cuda_device, C):
+    """The wrapper packs the weights once per stack; an in-place update of
+    a parameter (what an optimizer step does) packs them anew."""
+    units = _units(cuda_device, C, seed=3)
+    g = torch.Generator(cuda_device).manual_seed(4)
+    x = torch.randn((1, 300, C), generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    first = sc.res_unit_stack(units, x)
+    assert torch.equal(sc.res_unit_stack(units, x), first)
+    with torch.no_grad():
+        units[2].conv2.weight.mul_(-1.0)
+    got = sc.res_unit_stack(units, x)
+    ref = sc.res_unit_stack_plain([u.float() for u in units], x.float())
+    assert not torch.equal(got, first)
     assert _scaled_err(got, ref) < 2e-2
 
 
@@ -194,6 +217,12 @@ def test_snake_kernel_rejects_what_it_does_not_take(cuda_device):
     (1, 127, 127, 4, 2, None),
     (2, 128, 128, 16, 8, 128),
     (1, 129, 129, 2, 1, None),
+    # K2's and K3's 64-row tiles with Lq != Lk at their edges, G = 1 and 2
+    (1, 64, 129, 2, 2, None),
+    (1, 129, 63, 4, 2, None),
+    (2, 65, 128, 4, 2, 16),
+    (1, 128, 65, 2, 2, None),
+    (1, 200, 63, 4, 2, 64),         # rows past Lk + W: no valid key
     # the training shapes
     (1, 750, 750, 16, 8, None),
     (1, 1500, 1500, 16, 8, None),
@@ -219,6 +248,9 @@ def test_flash_bwd_kernels_match_plain(cuda_device, B, Lq, Lk, Hq, Hkv,
         assert _scaled_err(a, r) < 2e-2, (name, _scaled_err(a, r))
         if r.norm() > 1e-3 * r.numel() ** 0.5:   # not ~0 (L = 1: dS = 0)
             assert _norm_err(a, r) < 1e-2, (name, _norm_err(a, r))
+    if window is not None and Lq > Lk + window:
+        # query rows with no key in the band get exactly 0
+        assert (got[0][:, Lk + window:] == 0).all()
 
 
 def test_flash_bwd_strided_inputs(cuda_device):
@@ -250,6 +282,21 @@ def test_flash_bwd_dkv_is_deterministic(cuda_device):
         _, dk2, dv2 = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
                                                   window)
         assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(16, 8), (4, 4)])
+def test_flash_bwd_dq_is_deterministic(cuda_device, Hq, Hkv):
+    """K2 owns each dQ tile in one block and sums in a fixed order: two
+    runs give the same bits, with G = 2 and G = 1, full and banded."""
+    q, k, v = _qkv(cuda_device, 2, 1500, 1500, Hq, Hkv, seed=10)
+    g = torch.Generator(cuda_device).manual_seed(11)
+    dout = torch.randn(q.shape, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    for window in (None, 128):
+        out, lse = fa.flash_attention_with_lse(q, k, v, window=window)
+        dq1 = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, window)[0]
+        dq2 = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, window)[0]
+        assert torch.equal(dq1, dq2)
 
 
 def test_flash_attention_gradients_on_card(cuda_device):
