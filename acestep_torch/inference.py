@@ -164,11 +164,15 @@ def _merge_metadata(params: GenerationParams, lm_meta: Dict[str, Any]) -> Dict[s
 # ------------------------------------------------------------------
 
 
-def _audio_entry(params: GenerationParams, res, i: int, path
+def _audio_entry(dit_handler, params: GenerationParams, res, i: int, path
                  ) -> Dict[str, Any]:
-    """One per-song result entry: uuid key + reproducibility sidecar."""
+    """One per-song result entry: uuid key + reproducibility sidecar. The
+    handler's LoRA state enters both, so the same request under another
+    adapter or scale gets another key."""
     p_dict = params.to_dict()
     p_dict["seed"] = res.seeds[i]
+    if getattr(dit_handler, "lora", None) is not None:
+        p_dict["lora"] = dit_handler.lora.signature()
     entry = {
         "path": path,
         "key": generate_uuid_from_params(p_dict),
@@ -259,7 +263,7 @@ def generate_music(dit_handler, llm_handler=None,
         time_costs.update(res.time_costs)
         time_costs["total_time_cost"] = time.time() - t0
         paths = res.audio_paths or [None] * len(res.audios)
-        audios = [_audio_entry(params, res, i, path)
+        audios = [_audio_entry(dit_handler, params, res, i, path)
                   for i, path in enumerate(paths)]
         for entry, audio in zip(audios, res.audios):
             entry["audio"] = audio

@@ -8,15 +8,21 @@ LoRA `down (L, in, r)` and `up (L, r, out)`, LoKr `a (L, a1, a2)` and
 of a target is (L, in, out); the port's `nn.Linear` weights are (out, in)
 per layer, and `merge_weights` transposes each layer's delta onto them.
 
-`merge_weights` returns the merged weights as a name -> tensor mapping for
-`torch.func.functional_call`: the model is never copied or modified.
+`merge_weights` returns the merged weights as a name -> tensor mapping, and
+`call_with_weights` runs a function of the model with them in place of its
+parameters (`torch.func.functional_call`): the model is never copied or
+modified.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple, TypeVar
 
 import torch
+from torch import nn
+from torch.func import functional_call
+
+R = TypeVar("R")
 
 # path components under model.decoder.layers[i], each ending at an nn.Linear
 LORA_TARGETS: Tuple[Tuple[str, ...], ...] = (
@@ -162,6 +168,31 @@ def merge_weights(model, weights: dict, scale, meta: dict
                        * m[i].to(new.dtype)[:, None])
             merged[f"decoder.layers.{i}.{name}.weight"] = new
     return merged
+
+
+class _Bound(nn.Module):
+    """Holds the model so that `functional_call` can swap its weights for
+    the length of one call of `fn(model)`."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn):
+        return fn(self.model)
+
+
+def call_with_weights(model: nn.Module, weights: Dict[str, torch.Tensor],
+                      fn: Callable[[nn.Module], R]) -> R:
+    """`fn(model)` with `weights` (parameter name -> tensor, as
+    `merge_weights` gives them) in place of the model's parameters of those
+    names; with no weights, `fn(model)` itself. A backward run inside `fn`
+    sees the swapped weights too (per-layer recomputation included)."""
+    if not weights:
+        return fn(model)
+    return functional_call(_Bound(model),
+                           {f"model.{k}": v for k, v in weights.items()},
+                           (fn,))
 
 
 def adapter_param_count(adapter: dict) -> int:

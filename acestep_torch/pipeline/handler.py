@@ -1,22 +1,27 @@
-"""AceStepHandler: DiT-side orchestration of turbo text2music.
+"""AceStepHandler: DiT-side orchestration of every generation task.
 
-Port of the text2music branch of `acestep_tpu/pipeline/handler.py`:
-request normalisation, bucketed frame geometry, silence source latents and
-all-ones chunk masks, silence timbre references, text conditioning, the
-turbo trajectory, the segmented tiled VAE decode, the int16 + peak audio
-format, normalisation and saving. PyTorch runs eagerly, so there are no
-compiled programs to cache; the handler keeps its model modules on one
-device.
+Port of `acestep_tpu/pipeline/handler.py`: request normalisation, code
+hints (a text2music request with valid codes becomes a cover), source
+audio through the VAE encoder, outpainting (the source padded with silence
+and every row's repaint span shifted into the padded timeline), bucketed
+frame geometry, per-row source latents, chunk masks, repaint spans and
+cover flags, timbre references, text conditioning, the turbo trajectory or
+the base/sft guided one (CFG with APG or ADG), the cover switch and cover
+noise, the segmented tiled VAE decode, the int16 + peak audio format,
+normalisation and saving. Encoding and decoding step down an out-of-memory
+ladder and retry. The DiT renders with the effective weights of its
+`LoraManager`. PyTorch runs eagerly, so there are no compiled programs to
+cache; the handler keeps its model modules on one device.
 
-Requests that need a later slice of the port raise NotImplementedError:
-source or reference audio, audio-code hints, repainting, partial cover
-strength, and the base/sft models.
+Still raising NotImplementedError by name: checkpoint loading, quantized
+weights and LRC alignment.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
+import re
 import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -25,10 +30,14 @@ import torch
 
 from acestep_torch.config import DiTConfig, VAEConfig
 from acestep_torch.constants import LATENT_RATE, SAMPLE_RATE, VAE_HOP
-from acestep_torch.models.dit import build_dit, init_dit_params, prepare_condition
+from acestep_torch.lora.adapters import call_with_weights
+from acestep_torch.lora.manager import LoraManager
+from acestep_torch.models.dit import (
+    audio_tokenize, build_dit, init_dit_params, prepare_condition,
+)
 from acestep_torch.models.sampler import (
-    ConditionSet, build_turbo_schedule, renoise, sample_turbo,
-    truncate_for_cover_noise,
+    ConditionSet, build_continuous_schedule, build_turbo_schedule, renoise,
+    sample_guided, sample_turbo, truncate_for_cover_noise,
 )
 from acestep_torch.models.vae import OobleckVAE, init_vae_params
 from acestep_torch.models.vae_tiled import (
@@ -40,8 +49,9 @@ from acestep_torch.runtime_config import (
     detect_hbm_gb, effective_batch, effective_duration, get_tier_config,
 )
 from acestep_torch.utils.audio import (
-    AudioSaver, generate_uuid_from_params, peak_normalize,
+    AudioSaver, generate_uuid_from_params, load_audio, peak_normalize,
 )
+from acestep_torch.utils.memory import is_oom_error
 from acestep_torch.utils.progress import ProgressEstimator, ProgressTicker
 from acestep_torch.utils.weights import dit_from_jax, vae_from_jax
 
@@ -54,6 +64,20 @@ SEG_FRAMES = 768            # latent frames per decode segment
 def _pad_frames_to(T: int, bucket: int, min_frames: int) -> int:
     T = max(T, min_frames)
     return -(-T // bucket) * bucket
+
+
+def _degrade_plan(e: Exception, chunk: int, groups: int, *,
+                  min_chunk: int = 32) -> tuple:
+    """One step down the out-of-memory ladder: halve the parallel window
+    group, then the window; re-raises any other error, and the error
+    itself once the ladder is spent."""
+    if not is_oom_error(e):
+        raise e
+    if groups > 1:
+        return chunk, max(1, groups // 2)
+    if chunk > min_chunk:
+        return max(min_chunk, chunk // 2), 1
+    raise e
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,6 +95,12 @@ def _not_ported(what: str, slice_name: str):
     return NotImplementedError(
         f"{what} is not ported yet: it comes with the {slice_name} slice "
         f"of the PyTorch port (acestep_tpu has it)")
+
+
+def _is_cover_instruction(instruction: Optional[str]) -> bool:
+    ins = (instruction or "").lower()
+    return ("generate audio semantic tokens" in ins
+            and "based on the given conditions" in ins)
 
 
 @dataclasses.dataclass
@@ -104,7 +134,7 @@ class AceStepHandler:
         self.vae = None                    # OobleckVAE
         self.silence_latent: Optional[np.ndarray] = None   # (1, T, 64)
         self.text_embedder = None
-        self.lora = None
+        self.lora: Optional[LoraManager] = None
         self._seg_frames = SEG_FRAMES
         self.initialized = False
         self.tier = get_tier_config(detect_hbm_gb(self.device))
@@ -117,12 +147,19 @@ class AceStepHandler:
 
     @torch.no_grad()
     def initialize_service(self, seed: int = 0, params=None, vae_params=None,
-                           text_embedder=None) -> None:
+                           text_embedder=None, checkpoint_dir=None,
+                           quantization: Optional[str] = None) -> None:
         """Weights: `params` / `vae_params` are the JAX package's parameter
         trees as numpy arrays (carried across by utils/weights.py), or an
         `OobleckVAE` module to share; otherwise seeded random init on the
         device from `torch.Generator`s seeded `seed` (DiT) and `seed + 1`
-        (VAE)."""
+        (VAE). Attaches a `LoraManager` over the DiT."""
+        if checkpoint_dir:
+            raise _not_ported("checkpoint loading (checkpoint_dir)",
+                              "checkpoint")
+        if quantization:
+            raise _not_ported(f"quantization {quantization!r}",
+                              "quantization")
         if params is not None:
             self.model = dit_from_jax(
                 params, build_dit(self.cfg, self.device, self.dtype))
@@ -142,6 +179,7 @@ class AceStepHandler:
             (1, 15360, self.cfg.audio_acoustic_hidden_dim), np.float32)
         self.text_embedder = text_embedder or HashTextEmbedder(
             dim=self.cfg.text_hidden_dim)
+        self.lora = LoraManager(self.model)
         self.initialized = True
 
     # --------------------------------------------------------------
@@ -164,17 +202,87 @@ class AceStepHandler:
             t = t.to(self.dtype)
         return t
 
+    def _with_weights(self, fn):
+        """`fn(model)` on the DiT with the LoRA manager's effective
+        weights in place."""
+        weights = self.lora.effective_weights() if self.lora is not None \
+            else {}
+        return call_with_weights(self.model, weights, fn)
+
+    @staticmethod
+    def _parse_code_hint(hint) -> Optional[np.ndarray]:
+        """'<|audio_code_123|>...' or an int sequence -> int64 codes clamped
+        to [0, 63999]; '', None and an empty sequence are no hint."""
+        if hint is None or (isinstance(hint, str) and not hint.strip()):
+            return None
+        if isinstance(hint, str):
+            vals = [int(v) for v in re.findall(r"<\|audio_code_(\d+)\|>",
+                                               hint)]
+        else:
+            vals = [int(v) for v in hint]
+        if not vals:
+            return None
+        return np.clip(np.asarray(vals, np.int64), 0, 63999)
+
     def _prepare_refer(self, refer_audios, B: int):
-        """Silence timbre references: packed (B, RF, 64) + order arange(B)."""
-        if refer_audios is not None:
-            raise _not_ported("reference audio (refer_audios)",
-                              "cover/repaint tasks")
+        """Reference audio -> packed (B, RF, 64) timbre latents + order
+        arange(B). Missing rows take the silence latent; each distinct
+        reference (by identity) is encoded once, 30 s of it at most
+        (`_sample_reference_segments`), short encodes padded with silence.
+        A silent or empty reference raises ValueError."""
         RF = self.refer_frames
         silence_ref = self._silence(RF).astype(np.float32)
-        packed = np.broadcast_to(
-            silence_ref[None],
-            (B, RF, self.cfg.audio_acoustic_hidden_dim)).copy()
-        return packed, np.arange(B, dtype=np.int32)
+        if refer_audios is None:
+            packed = np.broadcast_to(
+                silence_ref[None],
+                (B, RF, self.cfg.audio_acoustic_hidden_dim)).copy()
+            return packed, np.arange(B, dtype=np.int32)
+        if isinstance(refer_audios, (str, np.ndarray)):
+            refer_audios = [refer_audios]
+        rows = []
+        cache: Dict[int, np.ndarray] = {}
+        for b in range(B):
+            ra = refer_audios[b % len(refer_audios)]
+            if ra is None:
+                rows.append(silence_ref)
+                continue
+            key = id(ra)
+            if key not in cache:
+                if isinstance(ra, str):
+                    ra = load_audio(ra)
+                ra = np.asarray(ra)
+                if ra.size == 0 or np.all(np.abs(ra) < 1e-6):
+                    raise ValueError(
+                        "Reference audio is invalid, unreadable, or "
+                        "silent. Please upload a valid audible audio "
+                        "file.")
+                z = self.encode_audio(self._sample_reference_segments(ra))
+                z = z[:RF]
+                if z.shape[0] < RF:
+                    z = np.concatenate([z, silence_ref[z.shape[0]:]], axis=0)
+                cache[key] = z.astype(np.float32)
+            rows.append(cache[key])
+        return np.stack(rows), np.arange(B, dtype=np.int32)
+
+    @staticmethod
+    def _sample_reference_segments(audio: np.ndarray,
+                                   budget_s: int = 30, seg_s: int = 10,
+                                   sr: int = SAMPLE_RATE) -> np.ndarray:
+        """30 s timbre budget: 10 s from the head, middle and tail of longer
+        audio; shorter audio loops to fill the budget. The windows sit at
+        fixed offsets (the JAX package's deterministic choice)."""
+        n = audio.shape[0]
+        budget = budget_s * sr
+        if n < budget:
+            reps = -(-budget // n)
+            audio = np.tile(audio, (reps, 1))[:budget]
+            n = audio.shape[0]
+        if n <= budget:
+            return audio
+        seg = seg_s * sr
+        mid = (n - seg) // 2
+        return np.concatenate(
+            [audio[:seg], audio[mid:mid + seg], audio[-seg:]], axis=0)
 
     # --------------------------------------------------------------
     # Encode / decode
@@ -184,19 +292,24 @@ class AceStepHandler:
     def encode_audio(self, audio: np.ndarray) -> np.ndarray:
         """(samples, ch) float32 -> (T, 64) latents (the encoder's mean)
         through the tiled VAE encode. Audio pads to a frame-bucket multiple
-        of hop samples, as in the JAX handler; an out-of-memory error
-        raises (the JAX handler's retry ladder is not ported)."""
+        of hop samples, as in the JAX handler. Out of device memory, the
+        window group and then the window halve and the encode retries."""
         x = np.asarray(audio, np.float32)
         hop = self.vae_cfg.hop_length
         T_real = -(-x.shape[0] // hop)
         pad = (-x.shape[0]) % (self.frame_bucket * hop)
         if pad:
             x = np.pad(x, ((0, pad), (0, 0)))
-        z = tiled_encode(self.vae, self.vae_cfg, self._tensor(x[None]),
-                         chunk_size=min(self.tier.encode_chunk,
-                                        DEFAULT_ENCODE_CHUNK),
-                         parallel_windows=8)
-        return z[0, :T_real].float().cpu().numpy()
+        x = self._tensor(x[None])
+        chunk = min(self.tier.encode_chunk, DEFAULT_ENCODE_CHUNK)
+        groups = 8
+        while True:
+            try:
+                z = tiled_encode(self.vae, self.vae_cfg, x, chunk_size=chunk,
+                                 parallel_windows=groups)
+                return z[0, :T_real].float().cpu().numpy()
+            except RuntimeError as e:        # the ladder re-raises the rest
+                chunk, groups = _degrade_plan(e, chunk, groups, min_chunk=64)
 
     def _decode_plan(self, T: int) -> tuple:
         """(chunk, parallel_windows) for a T-frame decode; the tier caps
@@ -208,16 +321,23 @@ class AceStepHandler:
     def _decode_to_host(self, z: torch.Tensor, chunk: int,
                         groups: int) -> np.ndarray:
         """Tiled decode, then audio moves to the host as int16 + per-item
-        peak (half the bytes of fp32) and is dequantised there."""
-        audio = tiled_decode(self.vae, self.vae_cfg, z.to(self.dtype),
-                             chunk_size=chunk,
-                             parallel_windows=groups).float()
-        peak = audio.abs().amax(dim=(1, 2), keepdim=True)
-        scale = peak.clamp_min(1e-8) / 32767.0
-        i16 = torch.clamp(torch.round(audio / scale), -32768, 32767).to(
-            torch.int16)
-        i16, peak = i16.cpu().numpy(), peak.cpu().numpy()
-        return i16.astype(np.float32) * (peak / 32767.0)
+        peak (half the bytes of fp32) and is dequantised there. Out of
+        device memory, the plan steps down the ladder and the decode
+        retries."""
+        while True:
+            try:
+                audio = tiled_decode(self.vae, self.vae_cfg, z.to(self.dtype),
+                                     chunk_size=chunk,
+                                     parallel_windows=groups).float()
+                peak = audio.abs().amax(dim=(1, 2), keepdim=True)
+                scale = peak.clamp_min(1e-8) / 32767.0
+                i16 = torch.clamp(torch.round(audio / scale), -32768,
+                                  32767).to(torch.int16)
+                del audio
+                i16, peak = i16.cpu().numpy(), peak.cpu().numpy()
+                return i16.astype(np.float32) * (peak / 32767.0)
+            except RuntimeError as e:        # the ladder re-raises the rest
+                chunk, groups = _degrade_plan(e, chunk, groups)
 
     def decode_latents(self, latents) -> np.ndarray:
         """(B, T, 64) -> (B, samples, 2) float32. Long songs split into
@@ -256,28 +376,68 @@ class AceStepHandler:
         return np.concatenate(parts, axis=1)[:, : T * hop]
 
     # --------------------------------------------------------------
+    # Audio -> 5 Hz codes
+    # --------------------------------------------------------------
+
+    def audio_to_codes(self, audio: np.ndarray) -> str:
+        """(samples, ch) -> '<|audio_code_N|>...' 5 Hz semantic codes."""
+        return self.latents_to_codes(self.encode_audio(np.asarray(audio)))
+
+    @torch.no_grad()
+    def latents_to_codes(self, latents: np.ndarray) -> str:
+        """(T, 64) latents, padded with silence to the pool window -> 5 Hz
+        codes, through the tokenizer with the effective weights."""
+        latents = np.asarray(latents)
+        pad = (-latents.shape[0]) % self.cfg.pool_window_size
+        if pad:
+            latents = np.concatenate(
+                [latents, self._silence(pad).astype(latents.dtype)], axis=0)
+        z = self._tensor(latents[None])
+        indices = self._with_weights(
+            lambda model: audio_tokenize(model, self.cfg, z)[1])
+        return "".join(f"<|audio_code_{int(i)}|>"
+                       for i in indices[0].cpu().tolist())
+
+    def generate_lrc(self, *args, **kwargs):
+        raise _not_ported("LRC alignment (generate_lrc)", "scoring/LRC")
+
+    # --------------------------------------------------------------
     # Generation
     # --------------------------------------------------------------
 
-    @torch.no_grad()
-    def _generate_latents(self, inputs: Dict[str, torch.Tensor], *,
-                          schedule, method: str, start_t,
-                          generators: List[torch.Generator]) -> torch.Tensor:
-        """Condition encode + turbo trajectory -> x0 (B, T, 64) fp32."""
+    def _trajectory(self, model, inputs: Dict[str, torch.Tensor], *,
+                    schedule, method: str, start_t,
+                    generators: List[torch.Generator], guidance_scale: float,
+                    use_adg: bool, cfg_interval: tuple,
+                    cover_steps: Optional[int]) -> torch.Tensor:
+        """Condition encode + trajectory -> x0 (B, T, 64) fp32."""
         cfg = self.cfg
-        enc, _m, ctx = prepare_condition(
-            self.model, cfg,
-            text_hidden_states=inputs["text_hidden_states"],
-            text_attention_mask=inputs["text_attention_mask"],
+        common = dict(
             lyric_hidden_states=inputs["lyric_hidden_states"],
             lyric_attention_mask=inputs["lyric_attention_mask"],
             refer_audio_packed=inputs["refer_audio_packed"],
             refer_order_mask=inputs["refer_order_mask"],
-            src_latents=inputs["src_latents"],
             chunk_masks=inputs["chunk_masks"],
-            is_covers=inputs["is_covers"],
             silence_latent=inputs["silence_latent"])
-        cond = ConditionSet.build(self.model, cfg, enc, ctx)
+        codes = {k: inputs[k] for k in ("audio_codes",
+                                        "audio_codes_valid_frames")
+                 if k in inputs}
+        enc, _m, ctx = prepare_condition(
+            model, cfg, text_hidden_states=inputs["text_hidden_states"],
+            text_attention_mask=inputs["text_attention_mask"],
+            src_latents=inputs["src_latents"], is_covers=inputs["is_covers"],
+            **common, **codes)
+        cond = ConditionSet.build(model, cfg, enc, ctx)
+        cond_nc = None
+        if "non_cover_text_hidden_states" in inputs:
+            enc_nc, _m2, ctx_nc = prepare_condition(
+                model, cfg,
+                text_hidden_states=inputs["non_cover_text_hidden_states"],
+                text_attention_mask=inputs["non_cover_text_attention_mask"],
+                src_latents=inputs["silence_src"],
+                is_covers=torch.zeros_like(inputs["is_covers"]), **common)
+            cond_nc = ConditionSet.build(model, cfg, enc_nc, ctx_nc)
+
         B, T = inputs["src_latents"].shape[:2]
         if "initial_noise" in inputs:
             # seed-parity seam: externally supplied noise, so trajectories
@@ -290,10 +450,57 @@ class AceStepHandler:
                 for g in generators])
         x_init = noise if start_t is None else renoise(
             inputs["src_latents"], start_t, noise)
-        x0 = sample_turbo(self.model, cfg, x_init=x_init, schedule=schedule,
-                          cond=cond, infer_method=method,
-                          generator=generators[0])
+        if cfg.model_version == "turbo":
+            x0 = sample_turbo(model, cfg, x_init=x_init, schedule=schedule,
+                              cond=cond, cond_non_cover=cond_nc,
+                              cover_steps=cover_steps, infer_method=method,
+                              generator=generators[0])
+        else:
+            null_cond = None
+            if guidance_scale > 1.0:
+                # the null condition keeps the conditional context latents
+                null = model.null_condition_emb.to(enc.dtype).expand(
+                    enc.shape)
+                null_cond = ConditionSet.build(model, cfg, null, ctx)
+            x0 = sample_guided(model, cfg, x_init=x_init, schedule=schedule,
+                               cond=cond, null_cond=null_cond,
+                               cond_non_cover=cond_nc,
+                               cover_steps=cover_steps,
+                               guidance_scale=guidance_scale,
+                               cfg_interval=cfg_interval, use_adg=use_adg,
+                               infer_method=method, generator=generators[0])
         return x0.float()
+
+    @torch.no_grad()
+    def _generate_latents(self, inputs: Dict[str, torch.Tensor],
+                          **kwargs) -> torch.Tensor:
+        """`_trajectory` on the DiT with the effective weights."""
+        return self._with_weights(
+            lambda model: self._trajectory(model, inputs, **kwargs))
+
+    def _schedule(self, *, shift: float, infer_steps: int, timesteps,
+                  cover_noise_strength: float, audio_cover_strength: float):
+        """(schedule, start_t, cover_steps) by model version: turbo snaps
+        to its discrete schedules (no trailing 0); sft takes the caller's
+        timesteps plus a trailing 0; base (and sft without timesteps) is
+        continuous. Cover noise truncates either family."""
+        version = self.cfg.model_version
+        if version == "turbo":
+            schedule = build_turbo_schedule(shift=shift, timesteps=timesteps)
+        elif version == "sft" and timesteps is not None:
+            schedule = [float(t) for t in timesteps]
+            if not schedule or schedule[-1] != 0.0:
+                schedule = schedule + [0.0]
+        else:
+            schedule = build_continuous_schedule(infer_steps, shift=shift)
+        start_t = None
+        if cover_noise_strength > 0.0:
+            schedule, start_t = truncate_for_cover_noise(
+                schedule, cover_noise_strength)
+        n_steps = len(schedule) if version == "turbo" else len(schedule) - 1
+        cover_steps = (int(n_steps * audio_cover_strength)
+                       if audio_cover_strength < 1.0 else None)
+        return schedule, start_t, cover_steps, n_steps
 
     def generate_music(
         self,
@@ -308,7 +515,7 @@ class AceStepHandler:
         batch_size: Optional[int] = None,
         seeds: Union[None, int, str, Sequence[int]] = None,
         use_random_seed: bool = False,
-        src_audio=None,
+        src_audio: Union[None, str, np.ndarray] = None,
         refer_audios=None,
         audio_code_hints=None,
         repainting_start=None,
@@ -338,25 +545,10 @@ class AceStepHandler:
         if infer_method not in ("ode", "sde"):
             raise ValueError(f"invalid infer_method {infer_method!r}: "
                              f"expected 'ode' or 'sde'")
-        if self.cfg.model_version != "turbo":
-            raise _not_ported(f"the {self.cfg.model_version} model "
-                              f"(guided sampler)", "guided sampler")
-        if task != "text2music":
-            raise _not_ported(f"task {task!r}", "cover/repaint tasks")
-        if src_audio is not None:
-            raise _not_ported("src_audio", "cover/repaint tasks")
-        if audio_code_hints is not None and any(
-                h for h in ([audio_code_hints] if isinstance(
-                    audio_code_hints, str) else audio_code_hints)):
-            raise _not_ported("audio_code_hints", "cover/repaint tasks")
-        if repainting_start is not None or repainting_end is not None:
-            raise _not_ported("repainting", "cover/repaint tasks")
-        if audio_cover_strength < 1.0:
-            raise _not_ported("audio_cover_strength < 1",
-                              "cover/repaint tasks")
         t_start = time.time()
         time_costs: Dict[str, float] = {}
         cfg = self.cfg
+        C = cfg.audio_acoustic_hidden_dim
 
         # ---- normalize request lists
         if isinstance(captions, str):
@@ -373,7 +565,19 @@ class AceStepHandler:
         if isinstance(vocal_languages, str):
             vocal_languages = [vocal_languages] * B
         vocal_languages = (list(vocal_languages) * B)[:B]
+        if audio_code_hints is None or isinstance(audio_code_hints, str):
+            audio_code_hints = [audio_code_hints] * B
+        audio_code_hints = (list(audio_code_hints) * B)[:B]
         seeds_list = textlib.prepare_seeds(B, seeds, use_random_seed)
+
+        # hints first: only valid codes make a request a cover (a junk hint
+        # must not give an all-zero cover)
+        codes_arrays = [self._parse_code_hint(h) for h in audio_code_hints]
+        has_codes = any(c is not None and len(c) for c in codes_arrays)
+        if not has_codes:
+            codes_arrays = [None] * B
+        if task == "text2music" and has_codes:
+            task = "cover"
         default_instr = textlib.resolve_instruction(
             task, track_name=track_name, track_classes=track_classes)
         if isinstance(instructions, str):
@@ -383,27 +587,151 @@ class AceStepHandler:
         instructions = [i or default_instr
                         for i in (list(instructions) * B)[:B]]
 
-        # ---- frame geometry, silence source, chunk masks
+        # ---- source audio -> latents, outpainting, frame geometry
         t0 = time.time()
+
+        def _norm_repaint(v):
+            # per-row lists; scalars broadcast; [] means no repaint
+            if v is None:
+                return [None] * B
+            if isinstance(v, (int, float)):
+                v = [float(v)]
+            v = [None if x is None else float(x) for x in v]
+            if not v:
+                return [None] * B
+            return (list(v) * B)[:B]
+
+        rs_list = _norm_repaint(repainting_start)
+        # a negative end means "to the end"
+        re_list = [None if (x is not None and x < 0) else x
+                   for x in _norm_repaint(repainting_end)]
+        repaint_any = any(s is not None or e is not None
+                          for s, e in zip(rs_list, re_list))
+
+        if src_audio is not None and task == "text2music" \
+                and not repaint_any:
+            src_audio = None         # text2music does not use src_audio
+        if src_audio is not None and has_codes:
+            src_audio = None         # codes win over src_audio
+        src_latent_single = None
+        if src_audio is not None:
+            if isinstance(src_audio, str):
+                src_audio = load_audio(src_audio)
+            src_latent_single = self.encode_audio(np.asarray(src_audio))
+
+        if src_latent_single is not None and repaint_any:
+            # outpainting: a negative start extends the song left of the
+            # source, an end past it extends it right; the source pads with
+            # silence latents, sized by the extremes across rows
+            src_dur = src_latent_single.shape[0] / LATENT_RATE
+            left_s = max((max(0.0, -(s or 0.0)) for s in rs_list),
+                         default=0.0)
+            right_s = max(
+                (max(0.0, (e if e is not None else src_dur) - src_dur)
+                 for e in re_list), default=0.0)
+            left_f = int(left_s * LATENT_RATE)
+            right_f = int(right_s * LATENT_RATE)
+            if left_f or right_f:
+                sil = np.asarray(self._silence(max(left_f, right_f)),
+                                 np.float32)
+                src_latent_single = np.concatenate(
+                    [sil[:left_f], np.asarray(src_latent_single, np.float32),
+                     sil[:right_f]], axis=0)
+                # the timeline grew for every row: pin each repaint row's
+                # implicit sides to its source window before shifting, so a
+                # row that did not outpaint does not repaint the padding
+                for i in range(B):
+                    if rs_list[i] is None and re_list[i] is None:
+                        continue
+                    if rs_list[i] is None:
+                        rs_list[i] = 0.0
+                    if re_list[i] is None:
+                        re_list[i] = src_dur
+            if left_s > 0:
+                rs_list = [None if s is None else s + left_s for s in rs_list]
+                re_list = [None if e is None else e + left_s for e in re_list]
+
         if audio_duration and audio_duration > 0:
             T_req = int(audio_duration * LATENT_RATE)
+        elif src_latent_single is not None:
+            T_req = src_latent_single.shape[0]
+        elif has_codes:
+            T_req = max(len(c) for c in codes_arrays if c is not None) * \
+                cfg.pool_window_size
         else:
             # an unspecified length draws a random 10-120 s song
             T_req = int(random.uniform(10.0, 120.0) * LATENT_RATE)
+        # the tier's duration ceiling however the length was derived
         T_req = min(T_req, int(
             effective_duration(T_req / LATENT_RATE, self.tier) * LATENT_RATE))
         T = _pad_frames_to(T_req, self.frame_bucket, self.min_frames)
         silence_T = self._silence(T).astype(np.float32)
-        is_cover_rows = [
-            "generate audio semantic tokens" in (ins or "").lower()
-            and "based on the given conditions" in (ins or "").lower()
-            for ins in instructions]
-        spans = [("full", 0, T)] * B
+        # text2music sends only constants: a broadcast silence and ones
+        plain_src = (not has_codes and src_latent_single is None
+                     and not repaint_any)
+
+        # ---- per row: target / source latents, chunk masks, spans, covers
+        spans, is_cover_rows = [], []
+        src_latents = chunk_masks = None
+        if plain_src:
+            spans = [("full", 0, T)] * B
+            is_cover_rows = [_is_cover_instruction(i) for i in instructions]
+        else:
+            # codes win over src_audio, so a source and codes never meet
+            target = silence_T
+            if src_latent_single is not None:
+                target = np.asarray(src_latent_single[:T], np.float32)
+                if target.shape[0] < T:
+                    target = np.concatenate(
+                        [target, silence_T[target.shape[0]:]], axis=0)
+            chunk = np.ones((B, T), np.float32)
+            src_rows = []
+            for i in range(B):
+                is_cover_rows.append(
+                    codes_arrays[i] is not None
+                    or _is_cover_instruction(instructions[i]))
+                rs_i, re_i = rs_list[i], re_list[i]
+                if rs_i is not None or re_i is not None:
+                    rs = max(0.0, rs_i if rs_i is not None else 0.0)
+                    re_ = re_i if re_i is not None else T_req / LATENT_RATE
+                    s_lat = int(rs * SAMPLE_RATE // VAE_HOP)
+                    e_lat = int(re_ * SAMPLE_RATE // VAE_HOP)
+                    s_lat = max(0, min(s_lat, T - 1))
+                    e_lat = max(s_lat + 1, min(e_lat, T))
+                    chunk[i] = 0.0
+                    chunk[i, s_lat:e_lat] = 1.0
+                    spans.append(("repainting", s_lat, e_lat))
+                    row = target.copy()
+                    row[s_lat:e_lat] = silence_T[s_lat:e_lat]
+                    src_rows.append(row)
+                    is_cover_rows[i] = False
+                else:
+                    spans.append(("full", 0, T))
+                    src_rows.append(target)
+            src_latents = np.stack(src_rows)
+            if repaint_any:
+                chunk_masks = np.broadcast_to(chunk[..., None],
+                                              (B, T, C)).astype(np.float32)
         time_costs["prepare_time_cost"] = time.time() - t0
 
-        # ---- timbre references + text conditioning
+        # ---- timbre references, code matrix, text conditioning
         t0 = time.time()
         refer_packed, refer_order = self._prepare_refer(refer_audios, B)
+        codes_inputs = {}
+        if has_codes:
+            T5 = T // cfg.pool_window_size
+            codes_mat = np.zeros((B, T5), np.int32)
+            valid_frames = np.zeros((B,), np.int32)
+            for i, c in enumerate(codes_arrays):
+                if c is not None:
+                    n = min(len(c), T5)
+                    codes_mat[i, :n] = c[:n]
+                    valid_frames[i] = n * cfg.pool_window_size
+            # frames past a row's real codes take the silence latent
+            codes_inputs = dict(
+                audio_codes=self._tensor(codes_mat, torch.int32),
+                audio_codes_valid_frames=self._tensor(valid_frames,
+                                                      torch.int32))
         actual_captions, actual_languages = \
             textlib.extract_caption_and_language(metas, captions,
                                                  vocal_languages)
@@ -415,17 +743,27 @@ class AceStepHandler:
                          for i in range(B)]
         text_h, text_m = self.text_embedder.encode_text(text_prompts)
         lyric_h, lyric_m = self.text_embedder.encode_lyrics(lyric_prompts)
+        has_non_cover = audio_cover_strength < 1.0
+        if has_non_cover:
+            nc_h, nc_m = self.text_embedder.encode_text([
+                textlib.build_text_prompt(
+                    textlib.resolve_instruction("text2music"),
+                    actual_captions[i], meta_strs[i]) for i in range(B)])
+            L = text_h.shape[1]                 # keep one text bucket
+            if nc_h.shape[1] != L:
+                nc_h = np.pad(nc_h[:, :L],
+                              ((0, 0), (0, max(0, L - nc_h.shape[1])),
+                               (0, 0)))
+                nc_m = np.pad(nc_m[:, :L],
+                              ((0, 0), (0, max(0, L - nc_m.shape[1]))))
         time_costs["text_encode_time_cost"] = time.time() - t0
         t0 = time.time()
 
-        # ---- schedule
-        schedule = build_turbo_schedule(shift=shift, timesteps=timesteps)
-        start_t = None
-        if cover_noise_strength > 0.0:
-            schedule, start_t = truncate_for_cover_noise(
-                schedule, cover_noise_strength)
+        schedule, start_t, cover_steps, n_steps = self._schedule(
+            shift=shift, infer_steps=infer_steps, timesteps=timesteps,
+            cover_noise_strength=cover_noise_strength,
+            audio_cover_strength=audio_cover_strength)
 
-        C = cfg.audio_acoustic_hidden_dim
         silence_dev = self._tensor(silence_T[None])
         inputs = dict(
             text_hidden_states=self._tensor(text_h),
@@ -434,13 +772,22 @@ class AceStepHandler:
             lyric_attention_mask=self._tensor(lyric_m, torch.int32),
             refer_audio_packed=self._tensor(refer_packed),
             refer_order_mask=self._tensor(refer_order, torch.int32),
-            src_latents=silence_dev.expand(B, T, C),
-            chunk_masks=torch.ones((B, T, C), dtype=self.dtype,
-                                   device=self.device),
+            src_latents=(silence_dev.expand(B, T, C) if plain_src
+                         else self._tensor(src_latents)),
+            chunk_masks=(torch.ones((B, T, C), dtype=self.dtype,
+                                    device=self.device)
+                         if chunk_masks is None
+                         else self._tensor(chunk_masks)),
             is_covers=self._tensor(np.asarray(is_cover_rows, np.int32),
                                    torch.int32),
             silence_latent=silence_dev,
+            **codes_inputs,
         )
+        if has_non_cover:
+            inputs["non_cover_text_hidden_states"] = self._tensor(nc_h)
+            inputs["non_cover_text_attention_mask"] = self._tensor(
+                nc_m, torch.int32)
+            inputs["silence_src"] = silence_dev.expand(B, T, C)
         if initial_noise is not None:
             noise_arr = np.asarray(initial_noise, np.float32)
             if noise_arr.ndim == 2:
@@ -457,13 +804,14 @@ class AceStepHandler:
 
         # ---- trajectory
         t0 = time.time()
-        n_steps = len(schedule)
         est = self.progress_estimator.estimate_seconds(
             n_steps, B, T_req / LATENT_RATE)
         with ProgressTicker(est, progress_callback or (lambda f: None)):
-            x0 = self._generate_latents(inputs, schedule=schedule,
-                                        method=infer_method, start_t=start_t,
-                                        generators=generators)
+            x0 = self._generate_latents(
+                inputs, schedule=schedule, method=infer_method,
+                start_t=start_t, generators=generators,
+                guidance_scale=guidance_scale, use_adg=use_adg,
+                cfg_interval=cfg_interval, cover_steps=cover_steps)
             # two scalars bring the trajectory to an end on the device
             finite = bool(torch.isfinite(x0).all())
             nonzero = bool(x0.abs().sum() > 0)
@@ -497,12 +845,13 @@ class AceStepHandler:
         t_save = time.time()
         if save_dir:
             saver = AudioSaver(save_dir)
+            lora_sig = self.lora.signature() if self.lora is not None else ""
             paths = []
             for i, a in enumerate(audios):
                 uid = generate_uuid_from_params({
                     "caption": captions[i], "lyrics": lyrics[i],
                     "meta": meta_strs[i], "seed": seeds_list[i],
-                    "task": task, "lora": ""})
+                    "task": task, "lora": lora_sig})
                 paths.append(saver.save_audio(a, uid, audio_format))
             time_costs["audio_conversion_time"] = time.time() - t_save
         time_costs["total_time_cost"] = time.time() - t_start

@@ -8,7 +8,7 @@ message) progress events.
 
 Only the adapter factors train. Each step merges them into the frozen base
 weights (`lora/adapters.merge_weights`, in the base weights' dtype), runs
-the loss through `torch.func.functional_call` with the merged weights and
+the loss with the merged weights in place (`call_with_weights`) and
 back-propagates into the factors; `torch.optim.AdamW` after
 `clip_grad_norm_` is the counterpart of optax's
 `chain(clip_by_global_norm, adamw)`. Batches are cast to the base weights'
@@ -26,12 +26,10 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
-from torch import nn
-from torch.func import functional_call
 
 from acestep_torch.config import DiTConfig
-from acestep_torch.lora.adapters import (LORA_TARGETS, init_lokr, init_lora,
-                                         merge_weights)
+from acestep_torch.lora.adapters import (LORA_TARGETS, call_with_weights,
+                                         init_lokr, init_lora, merge_weights)
 from acestep_torch.lora.manager import load_adapter_file, save_adapter
 from acestep_torch.models.dit import training_loss
 from acestep_torch.models.sampler import build_turbo_schedule
@@ -63,17 +61,6 @@ class LoRATrainingConfig:
         return dataclasses.asdict(self)
 
 
-class _Bound(nn.Module):
-    """Holds the model so that `functional_call` can swap its weights."""
-
-    def __init__(self, model: nn.Module):
-        super().__init__()
-        self.model = model
-
-    def forward(self, fn):
-        return fn(self.model)
-
-
 def _leaves(weights: dict):
     """The adapter's tensors in a fixed order (the optimizer's order)."""
     return [weights[n][p] for n in sorted(weights) for p in sorted(weights[n])]
@@ -89,10 +76,8 @@ def make_lora_train_step(model, cfg: DiTConfig, meta: dict,
     `weights` is the adapter's {target: {part: tensor}} tree, whose leaves
     `optimizer` updates; `batch` holds `training_loss`'s inputs as tensors
     on the model's device; `draws` optionally fixes its keep/noise/t. The
-    backward runs inside the `functional_call`, so the per-layer
+    backward runs inside `call_with_weights`, so the per-layer
     recomputation (remat) sees the merged weights too."""
-    bound = _Bound(model)
-
     def step(weights, batch, generator: Optional[torch.Generator] = None,
              **draws):
         optimizer.zero_grad(set_to_none=True)
@@ -106,8 +91,7 @@ def make_lora_train_step(model, cfg: DiTConfig, meta: dict,
             loss.backward()
             return loss.detach()
 
-        loss = functional_call(
-            bound, {f"model.{k}": v for k, v in merged.items()}, (run,))
+        loss = call_with_weights(model, merged, run)
         if grad_clip is not None:
             torch.nn.utils.clip_grad_norm_(_leaves(weights), grad_clip)
         optimizer.step()

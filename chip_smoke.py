@@ -9,7 +9,8 @@ so the exit code is non-zero and no result line is printed:
 1. device: the card's name and power limit (nvidia-smi) and the versions;
    no CUDA device is an error.
 2. build: the hand-written kernels of acestep_torch/csrc, built with nvcc.
-3. kernels: K1 (flash attention), K4 (snake + conv stack) and the flash
+3. kernels: K1 (flash attention; also at the guided sampler's doubled
+   batch, (2, 750) full and banded), K4 (snake + conv stack) and the flash
    backward's K2 (dQ) and K3 (dK/dV) against their plain PyTorch versions
    at the shapes the main paths give them, with kernel, plain-version and
    library times (CUDA events around calls queued behind a spin kernel,
@@ -21,7 +22,9 @@ so the exit code is non-zero and no result line is printed:
    entry and through its wrapper (`wrapper_ms`, weights packed once a
    stack and cached).
 4. reference: a small model through the port's handler on the card (bf16,
-   kernels) against the same weights on the CPU (fp32, plain versions);
+   kernels) against the same weights on the CPU (fp32, plain versions):
+   turbo text2music, a turbo cover (cover strength 0.5) and repaint of a
+   seeded song, and a base model's 4 guided (APG) steps;
    then one LoRA step of a small model, card against CPU: the loss and
    every target's adapter gradient, and a control step with the attention
    backward's delta left out that the gradient limit must catch.
@@ -29,16 +32,28 @@ so the exit code is non-zero and no result line is printed:
    bf16, seeded random weights) through acestep_torch.inference.
    generate_music, three requests; the kernels' launch counters show the
    path went through K1 and K4.
+   Then `tasks`, at the same width and sharing phase 5's VAE: a base
+   request (60 s, 50 steps, CFG 7 with APG, ODE) and an sft one (30 s, 8
+   custom timesteps, ADG, SDE) through the facade; on a seeded 60 s song,
+   through the handler: a cover (cover strength 0.5, cover noise 0.2), a
+   repaint of 10-20 s, an outpaint from -5 s to 5 s past the end, a timbre
+   reference, and `audio_to_codes` followed by a render from those codes.
+   Each request meets its K1 floor (layers x steps) and K4 floor (the
+   decode's stacks, plus one song's encode per encoder pass).
 6. training: two seeded 120 s songs through the port's training CLI at
    full width (DiTConfig(), VAEConfig(), bf16 base, fp32 adapters):
    `preprocess`, then `vanilla` for 8 LoRA steps (rank 16, all 11 targets,
    a checkpoint every 4), then a resume from checkpoint_4 to step 8; the
    counters show the path went through K1, K2, K3 (decoder) and K4 (VAE
    encoder, at least as often per song as phase 5's handler launches it
-   to encode one such song).
+   to encode one such song). Then `adapter`: the trained adapter loaded
+   into a turbo handler with the training run's base seed renders another
+   song than the base, the same bits as the base when toggled off, and
+   another result key while it is active.
 
-The launch counts of the kernel table are those of phases 5 and 6. The
-last two lines are the kernel table and {"ok": true, "device": ...}.
+The launch counts of the kernel table are those of phases 5 and 6 with
+their `tasks` and `adapter` parts. The last two lines are the kernel table
+and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -476,7 +491,9 @@ def phase_kernels():
     t0 = time.time()
     k1 = [_k1_case(1, 750, None, 1, host=True), _k1_case(1, 750, 128, 2),
           _k1_case(2, 1500, None, 3), _k1_case(2, 1500, 128, 4),
-          _k1_case(1, 1001, 128, 5), _k1_case(1, 1001, None, 6)]
+          _k1_case(1, 1001, 128, 5), _k1_case(1, 1001, None, 6),
+          # the guided sampler's doubled batch: a 60 s song under CFG
+          _k1_case(2, 750, None, 16), _k1_case(2, 750, 128, 17)]
     k4 = [_k4_case(4, 491520, 128, 7), _k4_case(4, 245760, 128, 8),
           _k4_case(4, 61440, 256, 9), _k4_case(3, 100003, 128, 10),
           _k4_case(2, 7001, 256, 11)]
@@ -489,42 +506,84 @@ def phase_kernels():
     return k1, k4, [r[0] for r in k23], [r[1] for r in k23]
 
 
-def phase_reference():
-    """A small model through the handler on the card (bf16, kernels) and on
-    the CPU (fp32, plain versions), same weights and noise."""
-    import numpy as np
+def _reference_pair(dit_cfg, vae_cfg):
+    """The same small model on the card (bf16) and on the CPU (fp32)."""
     import torch
 
-    from acestep_torch.config import DiTConfig, VAEConfig
     from acestep_torch.pipeline.handler import AceStepHandler
 
-    t0 = time.time()
-    cfgs = (DiTConfig.tiny(fsq_dim=64, head_dim=128),
-            VAEConfig.tiny(decoder_input_channels=64))
     geom = dict(frame_bucket=20, min_frames=20, refer_frames=10)
-    gpu = AceStepHandler(*cfgs, dtype=torch.bfloat16, **geom)
+    gpu = AceStepHandler(dit_cfg, vae_cfg, dtype=torch.bfloat16, **geom)
     gpu.initialize_service(seed=0)
-    cpu = AceStepHandler(*cfgs, dtype=torch.float32, device="cpu", **geom)
+    cpu = AceStepHandler(dit_cfg, vae_cfg, dtype=torch.float32, device="cpu",
+                         **geom)
     cpu.initialize_service(seed=0)
     # the memory tier picks the decode window; with the CPU's smaller one
     # the song would be decoded tiled, whose edge windows see zero context
     cpu.tier = gpu.tier
     cpu.model.load_state_dict(gpu.model.state_dict())
     cpu.vae.load_state_dict(gpu.vae.state_dict())
+    return gpu, cpu
+
+
+def _reference_case(name, gpu, cpu, **kw):
+    """One request on both; latents and audio relative to the largest CPU
+    value."""
+    import numpy as np
+
+    a = gpu.generate_music(**kw)
+    b = cpu.generate_music(**kw)
+    if a.extra != b.extra:
+        raise AssertionError(f"reference {name}: card extra {a.extra} != "
+                             f"CPU extra {b.extra}")
+    lat = float(np.abs(a.pred_latents - b.pred_latents).max()
+                / np.abs(b.pred_latents).max())
+    aud = float(max(np.abs(x - y).max() / np.abs(y).max()
+                    for x, y in zip(a.audios, b.audios)))
+    if not (lat < TOL_REFERENCE and aud < TOL_REFERENCE):
+        raise AssertionError(f"card vs CPU reference {name}: latents "
+                             f"{lat:.3e}, audio {aud:.3e} (tol "
+                             f"{TOL_REFERENCE})")
+    return {"latent_rel_err": lat, "audio_rel_err": aud}
+
+
+def phase_reference():
+    """Small models through the handler on the card (bf16, kernels) and on
+    the CPU (fp32, plain versions), same weights and noise: turbo
+    text2music, a turbo cover and repaint of a seeded song, and a base
+    model's guided steps."""
+    import numpy as np
+
+    from acestep_torch.config import DiTConfig, VAEConfig
+
+    t0 = time.time()
+    vae_cfg = VAEConfig.tiny(decoder_input_channels=64)
+    gpu, cpu = _reference_pair(DiTConfig.tiny(fsq_dim=64, head_dim=128),
+                               vae_cfg)
     noise = np.random.default_rng(0).standard_normal((2, 200, 64)).astype(
         np.float32)
-    kw = dict(audio_duration=8.0, seeds=[1, 2], normalize=False,
-              initial_noise=noise)
-    a = gpu.generate_music(["reference a", "reference b"], ["la", "da"], **kw)
-    b = cpu.generate_music(["reference a", "reference b"], ["la", "da"], **kw)
-    lat = np.abs(a.pred_latents - b.pred_latents).max() / \
-        np.abs(b.pred_latents).max()
-    aud = max(np.abs(x - y).max() / np.abs(y).max()
-              for x, y in zip(a.audios, b.audios))
-    if not (lat < TOL_REFERENCE and aud < TOL_REFERENCE):
-        raise AssertionError(f"card vs CPU reference: latents {lat:.3e}, "
-                             f"audio {aud:.3e} (tol {TOL_REFERENCE})")
-    emit(phase="reference", latent_rel_err=float(lat), audio_rel_err=float(aud),
+    common = dict(seeds=[1, 2], normalize=False, initial_noise=noise)
+    errs = {"text2music": _reference_case(
+        "text2music", gpu, cpu, captions=["reference a", "reference b"],
+        lyrics=["la", "da"], audio_duration=8.0, **common)}
+    # 200 latent frames of the tiny VAE (hop 8) at 48 kHz
+    song = _song(200 * vae_cfg.hop_length / 48000, 5)
+    errs["cover"] = _reference_case(
+        "cover", gpu, cpu, captions=["cover a", "cover b"], task="cover",
+        src_audio=song, audio_cover_strength=0.5, **common)
+    errs["repaint"] = _reference_case(
+        "repaint", gpu, cpu, captions=["repaint a", "repaint b"],
+        task="repaint", src_audio=song, repainting_start=2.0,
+        repainting_end=5.0, **common)
+    del gpu, cpu
+    gpu, cpu = _reference_pair(
+        DiTConfig.tiny(fsq_dim=64, head_dim=128, model_version="base"),
+        vae_cfg)
+    errs["base_apg"] = _reference_case(
+        "base_apg", gpu, cpu, captions=["guided a", "guided b"],
+        lyrics=["la", "da"], audio_duration=8.0, infer_steps=4,
+        guidance_scale=7.0, **common)
+    emit(phase="reference", **errs["text2music"], cases=errs,
          seconds=time.time() - t0)
 
 
@@ -722,6 +781,161 @@ def k4_launches_per_song(handler) -> int:
     return sc.launches - before
 
 
+def _check_audio(name, audios, samples):
+    import numpy as np
+
+    for audio in audios:
+        if audio.shape != (samples, 2):
+            raise AssertionError(f"{name}: audio shape {audio.shape}, want "
+                                 f"({samples}, 2)")
+        if not np.isfinite(audio).all():
+            raise AssertionError(f"{name}: non-finite audio")
+        if not np.abs(audio).max() > 1e-4:
+            raise AssertionError(f"{name}: silent audio")
+
+
+def _counted(fn):
+    """(result, K1 launches, K4 launches, wall s, peak bytes) of fn()."""
+    import torch
+
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+
+    k1, k4 = fa.launches, sc.launches
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, fa.launches - k1, sc.launches - k4, time.time() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def phase_tasks(turbo, k4_per_encode: int):
+    """The guided models and the editing tasks at full width (seeded
+    weights, bf16), sharing `turbo`'s VAE. The launch floors: K1 once per
+    decoder layer per step, K4 once per C <= 256 decoder stack (the
+    decode) plus `k4_per_encode` per encoder pass."""
+    import torch
+
+    from acestep_torch import inference
+    from acestep_torch.config import DiTConfig
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+    from acestep_torch.pipeline.handler import AceStepHandler
+
+    t_phase = time.time()
+    layers = turbo.cfg.num_hidden_layers
+    k4_decode = sum(blk.res1.conv1.weight.shape[0] <= 256
+                    for blk in turbo.vae.decoder.blocks)
+    hop = turbo.vae_cfg.hop_length
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    sc.launches = 0
+
+    def record(name, fn, *, steps, encodes, frames, extra=None):
+        res, k1, k4, wall, peak = _counted(fn)
+        need = {"K1": layers * steps, "K4": k4_decode + encodes * k4_per_encode}
+        if k1 < need["K1"] or k4 < need["K4"]:
+            raise AssertionError(f"{name}: K1 {k1} and K4 {k4} launches, "
+                                 f"need {need}")
+        rec = dict(phase="tasks", request=name, wall_s=wall, k1_launches=k1,
+                   k4_launches=k4, need=need, steps=steps, frames=frames,
+                   max_memory_allocated=peak, **(extra or {}))
+        return res, rec
+
+    # ---- base and sft, through the facade
+    guided = [
+        ("base_60s_apg_50", DiTConfig.base(), dict(
+            caption="warm jazz trio, brushed drums, upright bass",
+            lyrics="[Instrumental]", duration=60.0, seed=44,
+            inference_steps=50, guidance_scale=7.0, infer_method="ode"), 50),
+        ("sft_30s_adg_sde_8", DiTConfig.sft(), dict(
+            caption="driving rock, distorted guitars, 140 bpm",
+            lyrics="[verse]\nfaster now\n[chorus]\nhold on", duration=30.0,
+            seed=55, timesteps=[1.0, 0.92, 0.82, 0.7, 0.55, 0.4, 0.25, 0.1],
+            use_adg=True, guidance_scale=7.0, infer_method="sde"), 8),
+    ]
+    records = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        for name, cfg, kw, steps in guided:
+            handler = AceStepHandler(cfg, turbo.vae_cfg, dtype=torch.bfloat16)
+            handler.initialize_service(seed=0, vae_params=turbo.vae)
+
+            def run():
+                return inference.generate_music(
+                    handler, None,
+                    inference.GenerationParams(thinking=False, **kw),
+                    inference.GenerationConfig(batch_size=1,
+                                               use_random_seed=False,
+                                               output_dir=out_dir))
+
+            res, rec = record(name, run, steps=steps, encodes=0,
+                              frames=int(kw["duration"] * 25))
+            if not res.success:
+                raise AssertionError(f"{name}: {res.error}\n"
+                                     f"{res.status_message}")
+            _check_audio(name, [e["audio"] for e in res.audios],
+                         int(kw["duration"] * 25) * hop)
+            rec["time_costs"] = res.extra_outputs["time_costs"]
+            emit(**rec)
+            records.append(rec)
+            del handler, res
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # ---- the editing tasks on a seeded 60 s song, through the handler
+    song = _song(60.0, 66)
+    common = dict(captions="lofi remix, soft keys", lyrics="[Instrumental]",
+                  seeds=[77])
+
+    def task(name, *, steps, encodes, frames, spans=None, **kw):
+        res, rec = record(name, lambda: turbo.generate_music(**common, **kw),
+                          steps=steps, encodes=encodes, frames=frames)
+        if res.extra["frames"] != frames:
+            raise AssertionError(f"{name}: {res.extra['frames']} frames, "
+                                 f"want {frames}")
+        if len(res.extra["schedule"]) != steps:
+            raise AssertionError(f"{name}: schedule {res.extra['schedule']}, "
+                                 f"want {steps} steps")
+        if spans is not None and res.extra["spans"] != spans:
+            raise AssertionError(f"{name}: spans {res.extra['spans']}, want "
+                                 f"{spans}")
+        _check_audio(name, res.audios, frames * hop)
+        rec.update(time_costs=res.time_costs, spans=res.extra["spans"],
+                   schedule=res.extra["schedule"])
+        emit(**rec)
+        records.append(rec)
+        return res
+
+    # cover noise 0.2 starts the shift-3 schedule at its value nearest to
+    # 0.8, 0.833: 5 of 8 steps
+    task("cover_60s", steps=5, encodes=1, frames=1500, task="cover",
+         src_audio=song, audio_cover_strength=0.5, cover_noise_strength=0.2)
+    task("repaint_10_20s", steps=8, encodes=1, frames=1500, task="repaint",
+         src_audio=song, repainting_start=10.0, repainting_end=20.0,
+         spans=[("repainting", 250, 500)])
+    task("outpaint_minus5_plus5s", steps=8, encodes=1, frames=1750,
+         task="repaint", src_audio=song, repainting_start=-5.0,
+         repainting_end=65.0, spans=[("repainting", 0, 1750)])
+    task("timbre_reference_60s", steps=8, encodes=1, frames=1500,
+         audio_duration=60.0, refer_audios=song)
+    codes, _k1, k4, wall, _peak = _counted(lambda: turbo.audio_to_codes(song))
+    n_codes = codes.count("<|audio_code_")
+    if n_codes != 300 or k4 < k4_per_encode:
+        raise AssertionError(f"audio_to_codes: {n_codes} codes (want 300), "
+                             f"K4 {k4} launches (need >= {k4_per_encode})")
+    emit(phase="tasks", request="audio_to_codes_60s", wall_s=wall,
+         k4_launches=k4, codes=n_codes)
+    res = task("code_hint_render", steps=8, encodes=0, frames=1500,
+               audio_code_hints=codes)
+    if res.extra["task"] != "cover" or res.extra["is_covers"] != [True]:
+        raise AssertionError(f"code hints: task {res.extra['task']}, covers "
+                             f"{res.extra['is_covers']}")
+    launches = {"K1": fa.launches, "K4": sc.launches,
+                "K2": fa.launches_bwd_dq, "K3": fa.launches_bwd_dkv}
+    emit(phase="tasks", seconds=time.time() - t_phase, launches=launches)
+    return launches
+
+
 def _steps(metrics_path: str):
     """(steps, losses, first timestamp of each step) from metrics.jsonl."""
     first = {}
@@ -748,9 +962,77 @@ def _check_adapter(path: str) -> None:
 
 def phase_training(k4_per_song: int):
     """preprocess -> vanilla (8 steps) -> resume from checkpoint_4, through
-    the port's training CLI at full width, in a temporary directory."""
+    the port's training CLI at full width, in a temporary directory; then
+    the trained adapter at inference (`phase_adapter`)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
-        return _training_in(work, k4_per_song)
+        training = _training_in(work, k4_per_song)
+        adapter = phase_adapter(os.path.join(work, "lora", "adapter.npz"))
+    return training, adapter
+
+
+def phase_adapter(path: str):
+    """The trained adapter in a turbo handler with the training run's base
+    seed (0): it must render another song than the base, the base's bits
+    when toggled off, and another result key while it is active."""
+    import numpy as np
+    import torch
+
+    from acestep_torch import inference
+    from acestep_torch.config import DiTConfig, VAEConfig
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+    from acestep_torch.pipeline.handler import AceStepHandler
+
+    t0 = time.time()
+    handler = AceStepHandler(DiTConfig.turbo(), VAEConfig(),
+                             dtype=torch.bfloat16)
+    handler.initialize_service(seed=0)
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    sc.launches = 0
+    params = inference.GenerationParams(
+        caption="test song 0", lyrics="[verse]\nla la la\n[chorus]\noh oh",
+        duration=30.0, seed=88, thinking=False)
+    with tempfile.TemporaryDirectory() as out_dir:
+        config = inference.GenerationConfig(batch_size=1,
+                                            use_random_seed=False,
+                                            output_dir=out_dir)
+
+        def render():
+            res = inference.generate_music(handler, None, params, config)
+            if not res.success:
+                raise AssertionError(f"adapter render: {res.error}\n"
+                                     f"{res.status_message}")
+            entry = res.audios[0]
+            _check_audio("adapter render", [entry["audio"]], 750 * 1920)
+            return (res.extra_outputs["pred_latents"], entry["audio"],
+                    entry["key"], res.extra_outputs["time_costs"])
+
+        base = render()
+        info = handler.lora.load(path, adapter_name="chip_smoke_lora")
+        on, k1, k4, wall, peak = _counted(render)
+        signature = handler.lora.signature()
+        handler.lora.toggle(False)
+        off = render()
+    moved = float(np.abs(on[0] - base[0]).max())
+    same_bits = (np.array_equal(off[0], base[0])
+                 and np.array_equal(off[1], base[1]))
+    if not (moved > 1e-3 and same_bits and on[2] != base[2] == off[2]
+            and k1 >= 8 * handler.cfg.num_hidden_layers):
+        raise AssertionError(
+            f"adapter: latents moved {moved:.3e} (want > 1e-3), toggled off "
+            f"bit-identical {same_bits}, keys base/on/off {base[2]} / "
+            f"{on[2]} / {off[2]}, K1 {k1}")
+    launches = {"K1": fa.launches, "K4": sc.launches,
+                "K2": fa.launches_bwd_dq, "K3": fa.launches_bwd_dkv}
+    emit(phase="adapter", adapter=info, signature=signature,
+         latent_max_change=moved, toggled_off_bit_identical=same_bits,
+         keys={"base": base[2], "on": on[2], "off": off[2]}, wall_s=wall,
+         k1_launches=k1, k4_launches=k4, max_memory_allocated=peak,
+         time_costs=on[3], launches=launches, seconds=time.time() - t0)
+    del handler
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _training_in(work: str, k4_per_song: int):
@@ -884,11 +1166,13 @@ def main() -> None:
     phase_train_reference()
     text2music, handler = phase_end_to_end()
     k4_per_song = k4_launches_per_song(handler)
+    tasks = phase_tasks(handler, k4_per_song)
     del handler
     gc.collect()
     torch.cuda.empty_cache()
-    training = phase_training(k4_per_song)
-    launches = {k: text2music[k] + training[k] for k in training}
+    training, adapter = phase_training(k4_per_song)
+    launches = {k: text2music[k] + tasks[k] + training[k] + adapter[k]
+                for k in training}
 
     def row(name, source, replaces, cases, rep, n):
         return {"name": name, "route": "cuda", "source": source,

@@ -4,7 +4,7 @@ PyTorch port spends its time, on one NVIDIA GPU.
 
     python3 scripts/torch_train_profile.py [--frames 3000] [--steps 3]
     python3 scripts/torch_train_profile.py --text2music [--duration 60]
-        [--batch 1] [--steps 3]
+        [--batch 1] [--steps 3] [--model base --infer-steps 50]
 
 Builds the full-width DiT (`DiTConfig()`, bf16, seeded random weights) and
 a rank-16 LoRA adapter on all 11 targets (fp32), runs two warm-up steps of
@@ -32,8 +32,9 @@ one JSON line:
   FLOPs over what the card's dense bf16 peak (989 TFLOP/s) does in their
   kernel time.
 
-With `--text2music` it builds the full-width turbo handler
-(`DiTConfig.turbo()`, `VAEConfig()`, bf16, seeded random weights), runs two
+With `--text2music` it builds the full-width handler of `--model` (turbo
+by default, or the guided base / sft models at `--infer-steps` steps with
+CFG 7 and APG; `VAEConfig()`, bf16, seeded random weights), runs two
 warm-up requests of `--duration` seconds at `--batch` through
 `acestep_torch.inference.generate_music`, times `--steps` more with the
 host clock, traces one with `torch.profiler` and prints one JSON line:
@@ -41,7 +42,7 @@ host clock, traces one with `torch.profiler` and prints one JSON line:
 its complement `device_idle_share` over the traced request (the tracer's
 host overhead lengthens it), kernel milliseconds by
 category (K1, K4, matrix products, other), and for the two device stages,
-the diffusion (8 `dit_decoder` steps) and the VAE decode: each stage's
+the diffusion (the `dit_decoder` steps) and the VAE decode: each stage's
 wall time in the trace, its busy share, its kernel milliseconds by
 category, and `k1_share_of_stage` (K1's kernel time over the stage's wall
 time), with the inputs as the path leaves them. A stage's window runs from
@@ -125,7 +126,7 @@ def text2music(args) -> None:
     from acestep_torch.config import DiTConfig, VAEConfig
     from acestep_torch.pipeline.handler import AceStepHandler
 
-    handler = AceStepHandler(DiTConfig.turbo(), VAEConfig(),
+    handler = AceStepHandler(getattr(DiTConfig, args.model)(), VAEConfig(),
                              dtype=torch.bfloat16)
     handler.initialize_service(seed=0)
 
@@ -142,7 +143,8 @@ def text2music(args) -> None:
     params = inference.GenerationParams(
         caption="upbeat synthpop, female vocals, 120 bpm",
         lyrics="[verse]\nneon lights across the bay\n[chorus]\nwe run",
-        duration=args.duration, seed=22, thinking=False)
+        duration=args.duration, seed=22, thinking=False,
+        inference_steps=args.infer_steps)
     with tempfile.TemporaryDirectory() as out_dir:
         config = inference.GenerationConfig(batch_size=args.batch,
                                             use_random_seed=False,
@@ -194,7 +196,8 @@ def text2music(args) -> None:
             "k1_share_of_stage": by_cat.get("K1 flash fwd", 0.0) / wall_us}
     busy = busy_us(kernels) / 1e6 / traced_wall
     print(json.dumps({
-        "mode": "text2music", "duration": args.duration,
+        "mode": "text2music", "model": args.model,
+        "infer_steps": args.infer_steps, "duration": args.duration,
         "batch": args.batch, "requests": args.steps,
         "request_s": statistics.median(times), "traced_request_s": traced_wall,
         "device_busy_ms": busy * traced_wall * 1e3,
@@ -225,6 +228,10 @@ def main() -> None:
                     help="trace a text2music request instead of a step")
     ap.add_argument("--duration", type=float, default=60.0)
     ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--model", choices=("turbo", "base", "sft"),
+                    default="turbo")
+    ap.add_argument("--infer-steps", type=int, default=8,
+                    help="base/sft steps (turbo always takes 8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_train_profile: no CUDA device is available")

@@ -92,17 +92,33 @@ def test_seeded_noise_is_deterministic(handlers):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(src_audio=np.zeros((16, 2), np.float32)),
-    dict(refer_audios=np.zeros((16, 2), np.float32)),
-    dict(audio_code_hints="<|audio_code_5|>"),
-    dict(repainting_start=0.0),
-    dict(audio_cover_strength=0.5),
-    dict(task="cover"),
+    dict(checkpoint_dir="checkpoints/acestep-v15-turbo"),
+    dict(quantization="int8"),
+    dict(quantization="w8a8"),
+    dict(lrc=True),
+    dict(llm_handler=object()),
+    dict(want_lrc=True),
 ])
-def test_later_slices_raise_not_implemented(handlers, kwargs):
+def test_later_slices_raise_not_implemented(handlers, kwargs, tmp_path):
+    """What later slices bring raises NotImplementedError by name: checkpoint
+    loading, quantization, LRC and the LM planner (the facade returns the
+    error in its result)."""
     _, th = handlers
-    with pytest.raises(NotImplementedError):
-        th.generate_music("song", "x", audio_duration=0.8, **kwargs)
+    if "llm_handler" in kwargs or "want_lrc" in kwargs:
+        res = tinf.generate_music(
+            th, kwargs.get("llm_handler"),
+            tinf.GenerationParams(caption="x", duration=0.8),
+            tinf.GenerationConfig(batch_size=1, output_dir=str(tmp_path),
+                                  want_lrc=kwargs.get("want_lrc", False)))
+        assert not res.success and "not ported" in res.error
+        return
+    with pytest.raises(NotImplementedError, match="not ported"):
+        if "lrc" in kwargs:
+            th.generate_lrc(np.zeros((20, 64), np.float32), "x", "la")
+        else:
+            AceStepHandler(port_cfg(tiny_dit_cfg()), port_cfg(tiny_vae_cfg()),
+                           dtype=torch.float32, device="cpu",
+                           **GEOM).initialize_service(**kwargs)
 
 
 def test_facade_generate_music(handlers, tmp_path):
@@ -118,10 +134,12 @@ def test_facade_generate_music(handlers, tmp_path):
         # frames * 1920 samples only bites at the real hop
         assert entry["audio"].shape == (40 * 8, 2)
         assert entry["path"].endswith(".wav") and entry["params_path"]
-    bad = tinf.generate_music(th, None, tinf.GenerationParams(
+    # code hints turn a text2music request into a cover
+    cover = tinf.generate_music(th, None, tinf.GenerationParams(
         caption="x", duration=1.0, audio_codes="<|audio_code_1|>"),
         tinf.GenerationConfig(batch_size=1, output_dir=str(tmp_path)))
-    assert not bad.success and "not ported" in bad.error
+    assert cover.success, cover.error
+    assert cover.extra_outputs["task"] == "cover"
 
 
 def test_cuda_is_the_default_device():
