@@ -2,9 +2,11 @@
 
 `GenerationParams` / `GenerationConfig` / `GenerationResult` with the field
 surface of `acestep_tpu/inference.py`, and `generate_music(dit_handler,
-llm_handler=None, params, config)`: metadata merging (user values win), the
-DiT render, normalisation and saving. The 5 Hz LM planning phase is not
-ported yet, so the facade runs as with `thinking=False` and no planner.
+llm_handler=None, params, config)`: the optional 5 Hz LM planning phase
+(CoT metadata, then audio codes that feed the code-hint render), metadata
+merging (user values win), the DiT render, normalisation and saving. The
+planner's other modes: `analyze_input`, `understand_music`, `create_sample`
+and `format_sample`.
 """
 
 from __future__ import annotations
@@ -125,6 +127,23 @@ class GenerationResult:
         return asdict(self)
 
 
+@dataclass
+class UnderstandResult:
+    caption: str = ""
+    lyrics: str = ""
+    bpm: Optional[int] = None
+    duration: Optional[float] = None
+    keyscale: str = ""
+    language: str = ""
+    timesignature: str = ""
+    status_message: str = ""
+    success: bool = True
+    error: Optional[str] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        return asdict(self)
+
+
 # ------------------------------------------------------------------
 # Metadata merge (user wins)
 # ------------------------------------------------------------------
@@ -164,6 +183,128 @@ def _merge_metadata(params: GenerationParams, lm_meta: Dict[str, Any]) -> Dict[s
 # ------------------------------------------------------------------
 
 
+def _build_plan_kwargs(params: GenerationParams, *, lyrics: str,
+                       infer_type: str) -> Dict[str, Any]:
+    """LM planning kwargs from request params — the ONE place the request's
+    LM knob surface maps onto the planner (generate_music and
+    analyze_input share it). Mirrors reference inference.py:468-487.
+
+    infer_type: 'llm_dit' generates metadata AND codes; 'dit' is
+    metadata-only (reference :447: llm_dit iff need_audio_codes AND
+    thinking). CoT-only runs (thinking off, use_cot_* on) plan metadata
+    without generating codes. use_cot_caption/language=False drop the
+    field from the CoT schema itself (llm_inference.py:1231-1232)."""
+    return dict(
+        caption=params.caption, lyrics=lyrics,
+        temperature=params.lm_temperature,
+        metadata_temperature=params.lm_metadata_temperature,
+        codes_temperature=params.lm_codes_temperature,
+        repetition_penalty=params.lm_repetition_penalty,
+        cfg_scale=params.lm_cfg_scale,
+        top_k=params.lm_top_k, top_p=params.lm_top_p,
+        negative_prompt=params.lm_negative_prompt,
+        user_metadata=dict(
+            bpm=params.bpm or params.cot_bpm,
+            keyscale=params.keyscale or params.cot_keyscale,
+            timesignature=params.timesignature or params.cot_timesignature,
+            duration=(params.duration if params.duration and
+                      params.duration > 0 else params.cot_duration),
+            language=(params.vocal_language
+                      if params.vocal_language not in ("", "unknown")
+                      else None),
+        ),
+        infer_type=infer_type,
+        constrained=params.use_constrained_decoding,
+        use_cot_caption=params.use_cot_caption,
+        use_cot_language=params.use_cot_language,
+        use_cot_metas=params.use_cot_metas,
+    )
+
+
+def _plan_seed(params: GenerationParams) -> int:
+    """Plan seed follows the request seed (fixed -> reproducible plan;
+    unset/random -> varied plans across requests)."""
+    if params.seed is not None and params.seed >= 0:
+        return int(params.seed)
+    import random as _random
+
+    return _random.randrange(2 ** 31)
+
+
+def analyze_input(llm_handler, params: GenerationParams) -> Dict[str, Any]:
+    """analysis_only mode: metadata planning over caption/lyrics — no
+    audio, no codes phase (reference api_server.py:1887-1899). Honors the
+    full LM knob surface (pinned metadata, constrained toggle, sampling
+    knobs, seed) exactly like the generation planning path."""
+    if llm_handler is None:
+        return {"success": False, "error": "LLM handler not initialized"}
+    try:
+        plan = llm_handler.plan(
+            seed=_plan_seed(params),
+            **_build_plan_kwargs(params, lyrics=params.lyrics or "",
+                                 infer_type="dit"))
+        return {"success": True, "metadata": plan.get("metadata", {}),
+                "cot_text": plan.get("cot_text", "")}
+    except Exception as e:
+        return {"success": False, "error": str(e)}
+
+
+def _plan_lm(llm_handler, params: GenerationParams,
+             config: GenerationConfig, lyrics: str,
+             time_costs: Dict[str, Any]):
+    """LM planning stage of generate_music -> (lm_meta, audio_codes)."""
+    lm_meta: Dict[str, Any] = {}
+    audio_codes = params.audio_codes or None
+    # the reference skips the LM entirely for cover/repaint (its
+    # skip_lm_tasks, inference.py:390) — edit tasks must not have the
+    # LM overwrite the user's caption/metadata (or pay LM latency)
+    skip_lm = params.task_type in ("cover", "repaint")
+    # CoT knobs request LM planning even with thinking off (reference
+    # inference.py:397-398: use_lm = thinking OR need_lm_for_cot)
+    need_lm_for_cot = (params.use_cot_caption or params.use_cot_language
+                       or params.use_cot_metas)
+    if llm_handler is not None and not skip_lm and (
+            params.thinking or need_lm_for_cot):
+        t_lm = time.time()
+        plan_kwargs = _build_plan_kwargs(
+            params, lyrics=lyrics,
+            infer_type=("llm_dit" if (params.thinking
+                                      and params.task_type == "text2music"
+                                      and not audio_codes) else "dit"))
+        # per-item plans when allowed: each song in a batch gets its own
+        # CoT + codes, decoded as ONE batched device loop (plan_batch).
+        # When the plan produces no codes (infer_type='dit'), one plan
+        # serves the batch.
+        n_plans = (config.batch_size
+                   if config.allow_lm_batch and config.batch_size > 1
+                   and plan_kwargs["infer_type"] == "llm_dit"
+                   else 1)
+        lm_seed = _plan_seed(params)
+        if n_plans > 1 and hasattr(llm_handler, "plan_batch"):
+            phases = llm_handler.plan_batch(n=n_plans, seed=lm_seed,
+                                            **plan_kwargs)
+        else:
+            phases = [llm_handler.plan(seed=lm_seed + i, **plan_kwargs)
+                      for i in range(n_plans)]
+        phase = phases[0]
+        lm_meta = phase.get("metadata", {})
+        if not params.use_cot_metas:
+            # user opted out of LM metadata: keep only caption/language
+            lm_meta = {k: v for k, v in lm_meta.items()
+                       if k in ("caption", "language")}
+        if not audio_codes and any(p.get("audio_codes")
+                                   for p in phases):
+            # gate on ANY plan having codes: plan 0 coming back empty
+            # must not silently drop every other plan's codes
+            if n_plans > 1:
+                audio_codes = [p.get("audio_codes") or None
+                               for p in phases]
+            else:
+                audio_codes = phase["audio_codes"]
+        time_costs["lm_time_cost"] = time.time() - t_lm
+    return lm_meta, audio_codes
+
+
 def _audio_entry(dit_handler, params: GenerationParams, res, i: int, path
                  ) -> Dict[str, Any]:
     """One per-song result entry: uuid key + reproducibility sidecar. The
@@ -195,27 +336,29 @@ def generate_music(dit_handler, llm_handler=None,
                    params: Optional[GenerationParams] = None,
                    config: Optional[GenerationConfig] = None
                    ) -> GenerationResult:
-    """DiT render -> save. Errors come back as `success=False` with the
-    message, like the JAX facade."""
+    """Optional LM planning -> DiT render -> save. Errors come back as
+    `success=False` with the message, like the JAX facade."""
     params = params or GenerationParams()
     config = config or GenerationConfig()
     t0 = time.time()
     time_costs: Dict[str, Any] = {}
     try:
-        if llm_handler is not None:
-            raise NotImplementedError(
-                "the 5 Hz LM planner is not ported yet: pass "
-                "llm_handler=None (the thinking=False path)")
         if config.want_lrc:
             raise NotImplementedError(
                 "LRC alignment is not ported yet (scoring slice)")
         lyrics = "[Instrumental]" if params.instrumental and not params.lyrics \
             else params.lyrics
-        lm_meta: Dict[str, Any] = {}
-        audio_codes = params.audio_codes or None
+        lm_meta, audio_codes = _plan_lm(llm_handler, params, config,
+                                        lyrics, time_costs)
         meta = _merge_metadata(params, lm_meta)
-        duration = float(params.duration) if params.duration and \
-            params.duration > 0 else None
+        duration = None
+        if params.duration and params.duration > 0:
+            duration = float(params.duration)
+        elif lm_meta.get("duration"):
+            try:
+                duration = float(lm_meta["duration"])
+            except (TypeError, ValueError):
+                duration = None
         seeds = config.seeds if config.seeds is not None else (
             None if params.seed is None or params.seed < 0 else params.seed)
 
@@ -284,3 +427,56 @@ def generate_music(dit_handler, llm_handler=None,
         return GenerationResult(
             audios=[], success=False, error=f"{e}",
             status_message=traceback.format_exc(limit=5))
+
+
+def understand_music(llm_handler, audio_codes: str,
+                     temperature: float = 0.85,
+                     top_k: Optional[int] = None,
+                     top_p: Optional[float] = None,
+                     repetition_penalty: float = 1.0,
+                     use_constrained_decoding: bool = True,
+                     constrained_decoding_debug: bool = False) -> UnderstandResult:
+    """LM 'understand' mode: audio codes -> metadata/caption/lyrics.
+
+    Knob surface mirrors the reference facade (inference.py:779-800);
+    cfg_scale / negative_prompt are not supported in understand mode.
+    `constrained_decoding_debug` is accepted for signature parity."""
+    if llm_handler is None:
+        return UnderstandResult(success=False, error="LLM handler not initialized")
+    try:
+        out = llm_handler.understand(
+            audio_codes, temperature=temperature,
+            top_k=top_k or 0, top_p=top_p if top_p is not None else 1.0,
+            repetition_penalty=repetition_penalty,
+            use_constrained_decoding=use_constrained_decoding)
+        return UnderstandResult(
+            caption=out.get("caption", ""), lyrics=out.get("lyrics", ""),
+            bpm=out.get("bpm"), duration=out.get("duration"),
+            keyscale=out.get("keyscale", ""), language=out.get("language", ""),
+            timesignature=out.get("timesignature", ""),
+            status_message="success")
+    except Exception as e:
+        return UnderstandResult(success=False, error=str(e))
+
+
+def create_sample(llm_handler, query: str = "",
+                  temperature: float = 0.85) -> Dict[str, Any]:
+    """LM 'inspiration' mode: free-form query -> sample blueprint."""
+    if llm_handler is None:
+        return {"success": False, "error": "LLM handler not initialized"}
+    try:
+        return {"success": True, **llm_handler.create_sample(query, temperature=temperature)}
+    except Exception as e:
+        return {"success": False, "error": str(e)}
+
+
+def format_sample(llm_handler, caption: str = "", lyrics: str = "",
+                  temperature: float = 0.3) -> Dict[str, Any]:
+    """LM 'format' mode: normalize user caption/lyrics into the SFT format."""
+    if llm_handler is None:
+        return {"success": False, "error": "LLM handler not initialized"}
+    try:
+        return {"success": True,
+                **llm_handler.format_sample(caption, lyrics, temperature=temperature)}
+    except Exception as e:
+        return {"success": False, "error": str(e)}

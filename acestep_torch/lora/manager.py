@@ -10,8 +10,8 @@ Port of `acestep_tpu/lora/manager.py`:
   DoRA's `lora_magnitude_vector`, the `adapter_config.json` sidecar's
   `lora_alpha` / `r`) and LyCORIS LoKr (`lokr_w1` / `lokr_w2`, optionally
   rank-factored `_a` / `_b`, `alpha`, `dora_scale`). The format is read
-  here with `json` and numpy (an 8-byte little-endian header length, a
-  JSON header, raw buffers), so no `safetensors` package is needed;
+  by `utils/checkpoint.read_safetensors` with `json` and numpy, so no
+  `safetensors` package is needed;
 - `LoraManager`: load / add / unload / toggle / set_scale / status /
   signature, and the effective weights of the active adapter, merged once
   and cached until the active adapter or its scale changes.
@@ -25,7 +25,6 @@ from __future__ import annotations
 import json
 import os
 import re
-import struct
 import threading
 import time
 from typing import Any, Dict, Optional
@@ -34,6 +33,7 @@ import numpy as np
 import torch
 
 from acestep_torch.lora.adapters import adapter_param_count, merge_weights
+from acestep_torch.utils.checkpoint import read_safetensors
 
 
 def _np(x) -> np.ndarray:
@@ -90,34 +90,6 @@ def load_adapter_file(path: str) -> dict:
     raise ValueError(f"unsupported adapter format: {path}")
 
 
-_ST_FLOATS = {"F16": "<f2", "F32": "<f4", "F64": "<f8"}
-
-
-def _read_safetensors(path: str) -> Dict[str, np.ndarray]:
-    """A safetensors file -> {name: float32 array}. BF16 widens exactly (its
-    16 bits are a float32's upper half); F16 and F64 convert."""
-    with open(path, "rb") as f:
-        (n,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(n))
-        data = f.read()
-    out = {}
-    for key, info in header.items():
-        if key == "__metadata__":
-            continue
-        start, end = info["data_offsets"]
-        buf, dt = data[start:end], info["dtype"]
-        if dt == "BF16":
-            arr = (np.frombuffer(buf, "<u2").astype(np.uint32)
-                   << 16).view(np.float32)
-        elif dt in _ST_FLOATS:
-            arr = np.frombuffer(buf, _ST_FLOATS[dt]).astype(np.float32)
-        else:
-            raise ValueError(f"{path}: tensor {key} has dtype {dt}; adapters "
-                             f"take BF16, F16, F32 or F64")
-        out[key] = arr.reshape(info["shape"])
-    return out
-
-
 def _read_sidecar(path: str):
     """(lora_alpha, r) of the PEFT `adapter_config.json` beside `path`, or
     Nones: without it an alpha != rank adapter would merge at the wrong
@@ -150,7 +122,7 @@ def _lokr_target(raw: str) -> str:
 
 def _load_safetensors_adapter(path: str) -> dict:
     sidecar_alpha, sidecar_rank = _read_sidecar(path)
-    tensors = _read_safetensors(path)
+    tensors = read_safetensors(path)
     per_layer: Dict[str, Dict[int, Dict[str, np.ndarray]]] = {}
     lokr_layers: Dict[str, Dict[int, Dict[str, np.ndarray]]] = {}
     rank = None

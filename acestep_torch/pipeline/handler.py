@@ -13,13 +13,14 @@ ladder and retry. The DiT renders with the effective weights of its
 `LoraManager`. PyTorch runs eagerly, so there are no compiled programs to
 cache; the handler keeps its model modules on one device.
 
-Still raising NotImplementedError by name: checkpoint loading, quantized
-weights and LRC alignment.
+Still raising NotImplementedError by name: quantized weights and LRC
+alignment.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import random
 import re
 import time
@@ -133,6 +134,7 @@ class AceStepHandler:
         self.model = None                  # AceStepDiT
         self.vae = None                    # OobleckVAE
         self.silence_latent: Optional[np.ndarray] = None   # (1, T, 64)
+        self.checkpoint_dir: Optional[str] = None
         self.text_embedder = None
         self.lora: Optional[LoraManager] = None
         self._seg_frames = SEG_FRAMES
@@ -148,19 +150,30 @@ class AceStepHandler:
     @torch.no_grad()
     def initialize_service(self, seed: int = 0, params=None, vae_params=None,
                            text_embedder=None, checkpoint_dir=None,
+                           vae_dir=None,
                            quantization: Optional[str] = None) -> None:
-        """Weights: `params` / `vae_params` are the JAX package's parameter
-        trees as numpy arrays (carried across by utils/weights.py), or an
-        `OobleckVAE` module to share; otherwise seeded random init on the
-        device from `torch.Generator`s seeded `seed` (DiT) and `seed + 1`
-        (VAE). Attaches a `LoraManager` over the DiT."""
-        if checkpoint_dir:
-            raise _not_ported("checkpoint loading (checkpoint_dir)",
-                              "checkpoint")
+        """Weights, in order of precedence:
+        - `checkpoint_dir` / `vae_dir`: upstream checkpoint dirs
+          (safetensors, read by utils/checkpoint.py); the DiT dir's
+          `silence_latent.pt` becomes the silence latent;
+        - `params` / `vae_params`: the JAX package's parameter trees as
+          numpy arrays (carried across by utils/weights.py), or an
+          `OobleckVAE` module to share;
+        - otherwise seeded random init on the device from
+          `torch.Generator`s seeded `seed` (DiT) and `seed + 1` (VAE).
+        With a checkpoint the text encoder is the Qwen3-Embedding trunk
+        when one is found locally, else the hash embedder. Attaches a
+        `LoraManager` over the DiT."""
         if quantization:
             raise _not_ported(f"quantization {quantization!r}",
                               "quantization")
-        if params is not None:
+        self.checkpoint_dir = checkpoint_dir
+        silence = None
+        if checkpoint_dir:
+            from acestep_torch.utils.checkpoint import load_dit_checkpoint
+            self.model, silence = load_dit_checkpoint(
+                checkpoint_dir, self.cfg, self.device, self.dtype)
+        elif params is not None:
             self.model = dit_from_jax(
                 params, build_dit(self.cfg, self.device, self.dtype))
         else:
@@ -172,15 +185,50 @@ class AceStepHandler:
             vae = OobleckVAE(self.vae_cfg, device="meta", dtype=self.dtype)
             vae = vae.to_empty(device=self.device).requires_grad_(False)
             self.vae = vae_from_jax(vae_params, vae)
+        elif vae_dir:
+            from acestep_torch.utils.checkpoint import load_vae_checkpoint
+            self.vae = load_vae_checkpoint(vae_dir, self.vae_cfg, self.device,
+                                           self.dtype)
         else:
             gen = torch.Generator(self.device).manual_seed(seed + 1)
             self.vae = init_vae_params(self.vae_cfg, gen, dtype=self.dtype)
-        self.silence_latent = np.zeros(
+        self.silence_latent = silence if silence is not None else np.zeros(
             (1, 15360, self.cfg.audio_acoustic_hidden_dim), np.float32)
+        if text_embedder is None and checkpoint_dir:
+            text_embedder = self._build_qwen_embedder()
         self.text_embedder = text_embedder or HashTextEmbedder(
             dim=self.cfg.text_hidden_dim)
         self.lora = LoraManager(self.model)
         self.initialized = True
+
+    def _build_qwen_embedder(self):
+        """Qwen3-Embedding text encoder found locally: inside the
+        checkpoint dir, beside it, or in the checkpoint roots
+        (utils/downloads.resolve_local). None when there is none or it
+        cannot load (no `transformers` for its tokenizer): the caller then
+        uses the hash embedder."""
+        from acestep_torch.config import LMConfig
+        from acestep_torch.llm.tokenizer import load_hf_tokenizer
+        from acestep_torch.pipeline.embedder import QwenTextEmbedder
+        from acestep_torch.utils.checkpoint import load_lm_checkpoint
+        from acestep_torch.utils.downloads import resolve_local
+
+        name = "Qwen3-Embedding-0.6B"
+        path = next((c for c in (
+            os.path.join(self.checkpoint_dir, name),
+            os.path.join(os.path.dirname(self.checkpoint_dir), name))
+            if os.path.isdir(c)), None) or resolve_local(name)
+        if path is None:
+            return None
+        try:
+            tok = load_hf_tokenizer(path)
+            cfg = LMConfig.from_checkpoint(path)
+            model = load_lm_checkpoint(path, cfg, self.device, self.dtype)
+        except (ImportError, OSError, ValueError, KeyError) as e:
+            print(f"[acestep_torch] text encoder at {path} unavailable "
+                  f"({e!r}); using the hash embedder")
+            return None
+        return QwenTextEmbedder(model, cfg, tok, dtype=self.dtype)
 
     # --------------------------------------------------------------
     # Helpers

@@ -15,8 +15,12 @@ weights, on the CUDA device in bf16 unless `--device cpu` (float32, the
 plain versions of the kernels). `vanilla`/`fixed` append every progress
 event to `<output-dir>/metrics.jsonl` ({"step", "loss", "ts"}).
 
-Not ported yet: checkpoint loading (`--checkpoint-dir`, `--pick`,
-`--vae-dir` raise), and the `dataset`, `estimate` and `full` subcommands.
+Weights: `--checkpoint-dir` (an upstream DiT checkpoint dir), or `--pick
+NAME` to find one by (fuzzy) name under `--checkpoint-root` (default
+./checkpoints, training/discovery.py), and `--vae-dir` for the VAE; without
+them, seeded random weights.
+
+Not ported yet: the `dataset`, `estimate` and `full` subcommands.
 """
 
 from __future__ import annotations
@@ -30,10 +34,22 @@ from typing import Optional
 from acestep_torch.config import DiTConfig, VAEConfig
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: checkpoint loading comes with the "
-        f"checkpoint-loader slice of the PyTorch port (acestep_tpu has it)")
+def _resolve_pick(args) -> None:
+    """--pick NAME: discover the checkpoint dir by (fuzzy) name under
+    --checkpoint-root (an explicit --checkpoint-dir wins)."""
+    if not args.pick or args.checkpoint_dir:
+        return
+    from acestep_torch.training.discovery import pick_model
+
+    root = args.checkpoint_root or "checkpoints"
+    info = pick_model(root, args.pick)
+    if info is None:
+        raise SystemExit(
+            f"--pick {args.pick!r}: no matching model under {root}")
+    print(f"[training] picked {info.name} "
+          f"({'official' if info.is_official else 'custom'}, "
+          f"base: {info.base_model}) at {info.path}")
+    args.checkpoint_dir = info.path
 
 
 def _build_handler(args):
@@ -41,9 +57,7 @@ def _build_handler(args):
 
     from acestep_torch.pipeline.handler import AceStepHandler
 
-    for flag in ("checkpoint_dir", "pick", "vae_dir"):
-        if getattr(args, flag, None):
-            raise _not_ported("--" + flag.replace("_", "-"))
+    _resolve_pick(args)
     dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
     if args.tiny:
         # the tiny VAE emits latents at the tiny DiT's acoustic dim (64)
@@ -53,17 +67,20 @@ def _build_handler(args):
                                  refer_frames=10, device=args.device)
     else:
         handler = AceStepHandler(dtype=dtype, device=args.device)
-    handler.initialize_service(seed=args.seed)
+    handler.initialize_service(checkpoint_dir=args.checkpoint_dir,
+                               vae_dir=args.vae_dir, seed=args.seed)
     return handler
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint-dir", default=None,
-                   help="DiT checkpoint dir (not ported yet)")
+                   help="DiT checkpoint dir (default: seeded random init)")
+    p.add_argument("--checkpoint-root", default=None,
+                   help="root scanned by --pick (default ./checkpoints)")
     p.add_argument("--pick", default=None, metavar="NAME",
-                   help="checkpoint discovery by name (not ported yet)")
-    p.add_argument("--vae-dir", default=None,
-                   help="VAE checkpoint dir (not ported yet)")
+                   help="discover the checkpoint by (fuzzy) name under "
+                        "--checkpoint-root instead of a full path")
+    p.add_argument("--vae-dir", default=None, help="VAE checkpoint dir")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tiny", action="store_true",
                    help="miniature model (tests)")

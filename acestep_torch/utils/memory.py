@@ -1,4 +1,4 @@
-"""Device-memory exhaustion: detection.
+"""Device-memory exhaustion: detection and release.
 
 Copy of `acestep_tpu/utils/memory.py`'s matching logic for PyTorch: the
 one test behind the handler's out-of-memory ladders. CUDA raises
@@ -7,6 +7,8 @@ one test behind the handler's out-of-memory ladders. CUDA raises
 """
 
 from __future__ import annotations
+
+import gc
 
 import torch
 
@@ -19,3 +21,12 @@ def is_oom_error(e: BaseException) -> bool:
     return ("RESOURCE_EXHAUSTED" in msg or "OOM" in msg
             or "out of memory" in msg.lower())
 
+
+
+def release_device_memory() -> None:
+    """Collect garbage and release the caching allocator's unused blocks,
+    so a smaller retry after an out-of-memory error starts from a clean
+    pool."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()

@@ -1,8 +1,10 @@
 """Carry the JAX package's parameter trees across to the port's modules.
 
-`dit_from_jax` / `vae_from_jax` take a parameter pytree of the JAX package
-as numpy arrays (`jax.tree.map(np.asarray, init_dit_params(...))`) and
-return the port's `state_dict`, or load it into a module when one is given.
+`dit_from_jax` / `vae_from_jax` / `lm_from_jax` take a parameter pytree of
+the JAX package as numpy arrays (`jax.tree.map(np.asarray,
+init_dit_params(...))`, or a tree from `utils/checkpoint.py`'s converters)
+and return the port's `state_dict`, or load it into a module when one is
+given.
 Layout rules of the JAX package:
 
 - linears store w as (in, out); PyTorch's `nn.Linear` is (out, in);
@@ -103,6 +105,13 @@ def dit_from_jax(tree, module: Optional[nn.Module] = None):
 def vae_from_jax(tree, module: Optional[nn.Module] = None):
     """JAX `init_vae_params` tree -> the OobleckVAE state_dict (fp32), or
     the module with it loaded."""
+    return _load(_convert(tree), module)
+
+
+def lm_from_jax(tree, module: Optional[nn.Module] = None):
+    """JAX `init_lm_params` tree -> the QwenLM state_dict (fp32), or the
+    module with it loaded. The bare `embed_tokens` table keeps its (V, H)
+    layout; the untied `lm_head` linear transposes like every linear."""
     return _load(_convert(tree), module)
 
 

@@ -51,14 +51,32 @@ so the exit code is non-zero and no result line is printed:
    song than the base, the same bits as the base when toggled off, and
    another result key while it is active.
 
+Between phases 5 and 6, on phase 5's full-width handler:
+- checkpoint: its DiT and VAE written as an upstream-named checkpoint
+  (safetensors by hand: the DiT in two shards named by an index, the VAE,
+  `silence_latent.pt`; bf16), loaded by `initialize_service(
+  checkpoint_dir=..., vae_dir=...)`; every tensor and the silence latent
+  must equal what was written, and a 30 s turbo request renders from it.
+- planner: `LLMHandler.initialize_auto()` (the 80 GB tier's 4B planner at
+  bf16, seeded weights); teacher-forced logits of a 2-layer LM at the
+  planner's head geometry, bf16 on the card against fp32 on the CPU;
+  greedy CoT + codes at 4B as CUDA-graph replays against the eager step
+  (identical tokens); the decode step's wall and device ms, eager and as
+  a graph replay, beside its bound from bytes; then thinking=True
+  text2music through `generate_music` at 60 s, batch 1, after a warm-up:
+  CoT tokens, exactly 300 codes, tokens/s of each phase, K1 and K4
+  launches, peak memory and the parsed metadata.
+
 The launch counts of the kernel table are those of phases 5 and 6 with
-their `tasks` and `adapter` parts. The last two lines are the kernel table
-and {"ok": true, "device": ...}.
+their `tasks` and `adapter` parts, the checkpoint render and the measured
+thinking request. The last two lines are the kernel table and {"ok":
+true, "device": ...}.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import json
 import math
@@ -936,6 +954,392 @@ def phase_tasks(turbo, k4_per_encode: int):
     return launches
 
 
+# ------------------------------------------------------------------
+# checkpoint: a full-width synthetic upstream checkpoint, loaded and rendered
+# ------------------------------------------------------------------
+
+
+def _upstream_dit_name(key: str, t):
+    """The port's DiT key -> upstream name and layout (the inverse of the
+    converter's map; linear and conv layouts are PyTorch's on both sides)."""
+    import re
+
+    k = key.replace("decoder.proj_in.", "decoder.proj_in.1.")
+    k = k.replace("decoder.proj_out.", "decoder.proj_out.1.")
+    k = k.replace("tokenizer.pooler.", "tokenizer.attention_pooler.")
+    k = k.replace("tokenizer.fsq.", "tokenizer.quantizer.layers.0.")
+    k = re.sub(r"\.mlp\.(gate|up|down)\.", r".mlp.\1_proj.", k)
+    if k.endswith(".scale"):
+        k = k[: -len(".scale")] + ".weight"
+    if k.endswith("scale_shift_table") or k == "detokenizer.special_tokens":
+        t = t[None]
+    return k, t
+
+
+def _upstream_vae_name(key: str, t):
+    """The port's VAE key -> diffusers AutoencoderOobleck name and layout."""
+    import re
+
+    k = re.sub(r"\.res([123])\.", r".res_unit\1.",
+               key.replace(".blocks.", ".block."))
+    k = k.replace(".snake.", ".snake1.").replace(".down.", ".conv1.")
+    k = k.replace(".up.", ".conv_t1.")
+    if k.endswith((".alpha", ".beta")):
+        t = t.reshape(1, -1, 1)
+    return k, t
+
+
+def _write_safetensors(path: str, tensors: dict) -> None:
+    """safetensors by hand (no package): an 8-byte little-endian header
+    length, the JSON header (padded to 8 bytes), the raw buffers."""
+    import struct
+
+    import torch
+
+    names = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().view(torch.uint8).numpy())
+
+
+def _write_checkpoint(d: str, state: dict, shards: int) -> None:
+    """`state` in `shards` files named by model.safetensors.index.json."""
+    os.makedirs(d, exist_ok=True)
+    names = list(state)
+    weight_map = {}
+    for i in range(shards):
+        fname = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        part = {k: state[k] for k in names[i::shards]}
+        _write_safetensors(os.path.join(d, fname), part)
+        weight_map.update({k: fname for k in part})
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"weight_map": weight_map}, f)
+
+
+def phase_checkpoint(turbo):
+    """`turbo`'s full-width weights written as an upstream-named checkpoint
+    (DiT in two shards + index, VAE, silence_latent.pt; bf16), loaded by
+    `initialize_service(checkpoint_dir=..., vae_dir=...)`: every tensor must
+    equal the one written, and the loaded handler renders a 30 s song."""
+    import numpy as np
+    import torch
+
+    from acestep_torch import inference
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+    from acestep_torch.pipeline.handler import AceStepHandler
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        dit_dir = os.path.join(root, "acestep-v15-turbo")
+        vae_dir = os.path.join(root, "vae")
+        dit_state = dict(_upstream_dit_name(k, t)
+                         for k, t in turbo.model.state_dict().items())
+        _write_checkpoint(dit_dir, dit_state, shards=2)
+        _write_checkpoint(vae_dir, dict(
+            _upstream_vae_name(k, t)
+            for k, t in turbo.vae.state_dict().items()), shards=1)
+        silence = torch.randn((1, 15360, 64),
+                              generator=torch.Generator().manual_seed(3))
+        torch.save(silence, os.path.join(dit_dir, "silence_latent.pt"))
+        nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(root) for f in fs)
+        t_write = time.time() - t0
+        del dit_state
+        t1 = time.time()
+        handler = AceStepHandler(turbo.cfg, turbo.vae_cfg,
+                                 dtype=torch.bfloat16)
+        handler.initialize_service(checkpoint_dir=dit_dir, vae_dir=vae_dir)
+        torch.cuda.synchronize()
+        t_load = time.time() - t1
+    mismatched = []
+    for mod, src in ((handler.model, turbo.model), (handler.vae, turbo.vae)):
+        want = src.state_dict()
+        mismatched += [k for k, t in mod.state_dict().items()
+                       if not torch.equal(t, want[k])]
+    if mismatched or not np.array_equal(handler.silence_latent,
+                                        silence.numpy()):
+        raise AssertionError(f"checkpoint: {len(mismatched)} tensors differ "
+                             f"from the ones written ({mismatched[:5]}), or "
+                             f"the silence latent does")
+    fa.launches, sc.launches = 0, 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        res, k1, k4, wall, peak = _counted(lambda: inference.generate_music(
+            handler, None, inference.GenerationParams(
+                caption="acoustic folk, fingerpicked guitar",
+                lyrics="[Instrumental]", duration=30.0, seed=5,
+                thinking=False),
+            inference.GenerationConfig(batch_size=1, use_random_seed=False,
+                                       output_dir=out_dir)))
+    if not res.success:
+        raise AssertionError(f"checkpoint render: {res.error}")
+    _check_audio("checkpoint_render", [e["audio"] for e in res.audios],
+                 750 * turbo.vae_cfg.hop_length)
+    need_k1 = turbo.cfg.num_hidden_layers * 8
+    if k1 < need_k1 or k4 < 1:
+        raise AssertionError(f"checkpoint render: K1 {k1} (need >= "
+                             f"{need_k1}), K4 {k4} launches")
+    launches = {"K1": fa.launches, "K4": sc.launches, "K2": 0, "K3": 0}
+    emit(phase="checkpoint", checkpoint_bytes=nbytes, write_s=t_write,
+         load_s=t_load, tensors_checked=len(turbo.model.state_dict())
+         + len(turbo.vae.state_dict()), render_wall_s=wall,
+         k1_launches=k1, k4_launches=k4, max_memory_allocated=peak,
+         seconds=time.time() - t0)
+    del handler
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------------
+# planner: the 4B LM planner and a thinking=True request
+# ------------------------------------------------------------------
+
+# Teacher-forced logits of a 2-layer LM at the planner's head geometry,
+# bf16 on the card (graph replays) against fp32 on the CPU (eager), same
+# weights: relative to the largest CPU logit. The head is taken in the
+# compute dtype as in JAX, so the card's logits carry bf16 rounding
+# (~4e-3) on top of two layers of bf16 activations.
+TOL_LM_REFERENCE = 5e-2
+
+
+def _teacher_forced(engine, prompt: str, forced):
+    """Logits after the prompt and after each forced token, through the
+    engine's prefill and its decode step (graph or eager)."""
+    import torch
+
+    logits, cache, lens, _ = engine._prefill_prompts([prompt], len(forced))
+    row_lens = torch.as_tensor(lens, device=engine.device)
+    step = engine.decode_step(cache, row_lens, 0, engine.vocab_use)
+    out = [logits.clone()]
+    for t in forced:
+        logits = step(torch.tensor([t], device=engine.device), row_lens)
+        row_lens = row_lens + 1
+        out.append(logits.clone())
+    return torch.cat(out).float().cpu()
+
+
+def _lm_reference():
+    import torch
+
+    from acestep_torch.config import LMConfig
+    from acestep_torch.llm.generator import LMEngine
+    from acestep_torch.llm.tokenizer import SimpleTokenizer
+    from acestep_torch.models.lm import build_lm, init_lm_params
+
+    tok = SimpleTokenizer(num_audio_codes=64_000)
+    cfg = dataclasses.replace(LMConfig.qwen3_4b(), vocab_size=tok.vocab_size,
+                              hidden_size=512, intermediate_size=1024,
+                              num_hidden_layers=2)
+    card = init_lm_params(cfg, torch.Generator("cuda").manual_seed(4),
+                          dtype=torch.bfloat16)
+    cpu = build_lm(cfg, "cpu", torch.float32)
+    cpu.load_state_dict(card.state_dict())
+    prompt = ("<|im_start|>user\n# Caption\nwarm synthwave\n\n# Lyric\n"
+              "la la<|im_end|>\n<|im_start|>assistant\n")
+    forced = tok.encode("<think>\nbpm: 118\ncaption: neon nights\n")[:32]
+    forced += [tok.audio_code_id(i * 997) for i in range(32 - len(forced))]
+    got = _teacher_forced(LMEngine(card, cfg, tok), prompt, forced)
+    want = _teacher_forced(LMEngine(cpu, cfg, tok, dtype=torch.float32),
+                           prompt, forced)
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err < TOL_LM_REFERENCE:
+        raise AssertionError(f"LM card vs CPU: teacher-forced logits rel "
+                             f"err {err:.3e} (tol {TOL_LM_REFERENCE})")
+    return {"logits_rel_err": err, "tol": TOL_LM_REFERENCE,
+            "positions": len(forced) + 1, "layers": cfg.num_hidden_layers,
+            "hidden": cfg.hidden_size, "heads": [cfg.num_attention_heads,
+                                                 cfg.num_key_value_heads],
+            "head_dim": cfg.head_dim}
+
+
+def _step_times(engine, rows: int = 2, slots: int = 768, fill: int = 400):
+    """One decode step of the planner (rows [cond; uncond], `fill` tokens
+    in a `slots` cache, the CoT's head window): wall ms per step eager and
+    as a graph replay (host included, 64 steps, median of 3 rounds), the
+    replay's device ms (`cuda_ms`), and the step's bound from bytes: every
+    trunk weight, the head window's rows and the attended K/V once."""
+    import torch
+
+    from acestep_torch.llm.generator import _GraphStep
+    from acestep_torch.models.lm import KVCache
+
+    cfg, V = engine.cfg, engine.vocab_use
+    cache = KVCache.create(cfg, rows, slots, dtype=engine.dtype,
+                           device=engine.device)
+    row_lens = torch.full((rows,), fill, dtype=torch.long,
+                          device=engine.device)
+    toks = torch.zeros(rows, dtype=torch.long, device=engine.device)
+    graph = _GraphStep(engine._step_eager, cache, row_lens, 0, V)
+    calls = {"eager": lambda: engine._step_eager(toks, cache, row_lens, 0, V),
+             "graph": lambda: graph(toks, row_lens)}
+    walls = {name: [] for name in calls}
+    for r in range(3):
+        for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            calls[name]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(64):
+                calls[name]()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) / 64 * 1e3)
+    trunk = sum(p.numel() * p.element_size()
+                for p in engine.model.layers.parameters())
+    head = V * cfg.hidden_size * 2
+    kv = 2 * cfg.num_hidden_layers * rows * fill * cfg.num_key_value_heads \
+        * cfg.head_dim * 2
+    flops = 2 * rows * (trunk + head) / 2      # 2 per weight (bf16: 2 B)
+    bound_ms, bound_by = bound(flops, trunk + head + kv)
+    out = {"eager_wall_ms": statistics.median(walls["eager"]),
+           "graph_wall_ms": statistics.median(walls["graph"]),
+           "graph_device_ms": cuda_ms(calls["graph"], reps=50),
+           "rounds": walls, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": trunk + head + kv, "rows": rows, "slots": slots,
+           "fill": fill, "head_rows": V}
+    del graph, cache
+    return out
+
+
+def phase_planner(turbo):
+    """The 5 Hz planner on the card: `initialize_auto` (the tier's choice:
+    4B at bf16 on an 80 GB card), a card-vs-CPU logits reference at the
+    planner's head geometry, greedy CoT + codes as graph replays against
+    the eager step (identical tokens), the decode step's times, then a
+    thinking=True text2music request through the facade (60 s, batch 1,
+    after a warm-up): CoT metadata, 300 codes, the code-hint render through
+    K1 and the VAE decode through K4."""
+    import torch
+
+    from acestep_torch import inference
+    from acestep_torch.llm.handler import LLMHandler
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+
+    t0 = time.time()
+    reference = _lm_reference()
+    emit(phase="planner", part="reference", **reference)
+    llm = LLMHandler(dtype=torch.bfloat16)
+    picked = llm.initialize_auto()
+    torch.cuda.synchronize()
+    cfg = llm.cfg
+    print(f"planner: {picked['size']} quantization={picked['quantization']}",
+          flush=True)
+    if (picked["size"], picked["quantization"]) != ("4B", None):
+        raise AssertionError(f"planner: the 80 GB tier picked {picked}")
+    emit(phase="planner", part="init", picked=picked, init_s=time.time() - t0,
+         params=sum(p.numel() for p in llm.engine.model.parameters()),
+         hidden=cfg.hidden_size, layers=cfg.num_hidden_layers,
+         heads=[cfg.num_attention_heads, cfg.num_key_value_heads],
+         head_dim=cfg.head_dim, intermediate=cfg.intermediate_size,
+         vocab=cfg.vocab_size, vocab_use=llm.engine.vocab_use,
+         memory_allocated=torch.cuda.memory_allocated())
+
+    # graph replays against the eager step: greedy, same prompt and seed,
+    # no cross-request prefix (a reused prefix is another prefill shape)
+    eng = llm.engine
+    eng.cross_prefix_enabled = False
+    plans = {}
+    for graphs in (True, False):
+        eng.cuda_graphs = graphs
+        eng._cross_prefix = None
+        t1 = time.time()
+        plans[graphs] = llm.plan(
+            "dark techno, pounding kick, 130 bpm", "[Instrumental]",
+            target_duration=10, seed=0, cfg_scale=2.0,
+            metadata_temperature=0.0, codes_temperature=0.0)
+        torch.cuda.synchronize()
+        plans[graphs]["wall_s"] = time.time() - t1
+    eng.cuda_graphs, eng.cross_prefix_enabled = True, True
+    same = all(plans[True][k] == plans[False][k]
+               for k in ("cot_text", "audio_codes", "metadata"))
+    cot_tokens = len(llm.tokenizer.encode(plans[True]["cot_text"]))
+    emit(phase="planner", part="graph_vs_eager", identical=same,
+         cot_tokens=cot_tokens,
+         codes=plans[True]["audio_codes"].count("<|audio_code_"),
+         graph_wall_s=plans[True]["wall_s"],
+         eager_wall_s=plans[False]["wall_s"],
+         metadata=plans[True]["metadata"])
+    if not same:
+        raise AssertionError("planner: graph replays and the eager step "
+                             "decoded different greedy tokens")
+    steps = _step_times(eng)
+    emit(phase="planner", part="decode_step", **steps)
+
+    # a thinking=True request through the facade, after a warm-up
+    timing = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timing[name] = (time.time() - t, out)
+            return out
+        return wrapper
+
+    requests = [("warm-up", "lofi hip hop, rainy window, soft keys", 12),
+                ("thinking_60s", "melodic house, airy pads, female vocals",
+                 21)]
+    with tempfile.TemporaryDirectory() as out_dir, \
+            mock.patch.object(eng, "generate_cot_device",
+                              timed("cot", eng.generate_cot_device)), \
+            mock.patch.object(eng, "generate_codes",
+                              timed("codes", eng.generate_codes)):
+        for name, caption, seed in requests:
+            captures = eng.graph_captures
+            fa.launches, sc.launches = 0, 0
+            res, k1, k4, wall, peak = _counted(
+                lambda: inference.generate_music(
+                    turbo, llm, inference.GenerationParams(
+                        caption=caption,
+                        lyrics="[verse]\nlights on the water\n[chorus]\n"
+                               "hold me close",
+                        duration=60.0, seed=seed, thinking=True),
+                    inference.GenerationConfig(batch_size=1,
+                                               use_random_seed=False,
+                                               output_dir=out_dir)))
+            if not res.success:
+                raise AssertionError(f"planner {name}: {res.error}\n"
+                                     f"{res.status_message}")
+            out = res.extra_outputs
+            n_codes = out["audio_codes"].count("<|audio_code_")
+            cot_s, cot_ids = timing["cot"][0], timing["cot"][1][0]
+            codes_s = timing["codes"][0]
+            need_k1 = turbo.cfg.num_hidden_layers * 8
+            if n_codes != 300 or k1 < need_k1 or k4 < 1:
+                raise AssertionError(
+                    f"planner {name}: {n_codes} codes (want 300), K1 {k1} "
+                    f"(need >= {need_k1}), K4 {k4} launches")
+            _check_audio(name, [e["audio"] for e in res.audios],
+                         1500 * turbo.vae_cfg.hop_length)
+            emit(phase="planner", part="thinking", request=name, wall_s=wall,
+                 lm_time_cost=out["time_costs"].get("lm_time_cost"),
+                 cot_tokens=len(cot_ids), cot_s=cot_s,
+                 cot_tokens_per_s=len(cot_ids) / cot_s, codes=n_codes,
+                 codes_s=codes_s, codes_tokens_per_s=n_codes / codes_s,
+                 graph_captures=eng.graph_captures - captures,
+                 k1_launches=k1, k4_launches=k4, max_memory_allocated=peak,
+                 lm_metadata=out["lm_metadata"],
+                 time_costs=out["time_costs"])
+    launches = {"K1": fa.launches, "K4": sc.launches, "K2": 0, "K3": 0}
+    emit(phase="planner", seconds=time.time() - t0, launches=launches)
+    del llm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _steps(metrics_path: str):
     """(steps, losses, first timestamp of each step) from metrics.jsonl."""
     first = {}
@@ -1167,12 +1571,14 @@ def main() -> None:
     text2music, handler = phase_end_to_end()
     k4_per_song = k4_launches_per_song(handler)
     tasks = phase_tasks(handler, k4_per_song)
+    checkpoint = phase_checkpoint(handler)
+    planner = phase_planner(handler)
     del handler
     gc.collect()
     torch.cuda.empty_cache()
     training, adapter = phase_training(k4_per_song)
-    launches = {k: text2music[k] + tasks[k] + training[k] + adapter[k]
-                for k in training}
+    launches = {k: text2music[k] + tasks[k] + checkpoint[k] + planner[k]
+                + training[k] + adapter[k] for k in training}
 
     def row(name, source, replaces, cases, rep, n):
         return {"name": name, "route": "cuda", "source": source,

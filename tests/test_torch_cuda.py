@@ -342,3 +342,109 @@ def test_res_unit_stack_gradients_on_card(cuda_device):
     ref = [xr.grad] + [p.grad for u in units for p in u.parameters()]
     for a, r in zip(got, ref):
         assert a is not None and _scaled_err(a, r.float()) < 2e-2
+
+
+# ------------------------------------------------------------------
+# The 5 Hz planner and checkpoint loading on the card
+# ------------------------------------------------------------------
+
+
+def _planner_lm(device, dtype, seed=4):
+    """A 2-layer LM at the planner's head geometry (32/8 heads of 128)
+    over the SimpleTokenizer with 64 audio codes."""
+    import dataclasses
+
+    from acestep_torch.config import LMConfig
+    from acestep_torch.llm.tokenizer import SimpleTokenizer
+    from acestep_torch.models.lm import init_lm_params
+
+    tok = SimpleTokenizer(num_audio_codes=64)
+    cfg = dataclasses.replace(LMConfig.qwen3_4b(), vocab_size=tok.vocab_size,
+                              hidden_size=256, intermediate_size=512,
+                              num_hidden_layers=2)
+    model = init_lm_params(cfg, torch.Generator(device).manual_seed(seed),
+                           dtype=dtype)
+    return cfg, tok, model
+
+
+def _forced_logits(engine, prompt, forced):
+    logits, cache, lens, _ = engine._prefill_prompts([prompt], len(forced))
+    row_lens = torch.as_tensor(lens, device=engine.device)
+    step = engine.decode_step(cache, row_lens, 0, engine.vocab_use)
+    out = [logits.clone()]
+    for t in forced:
+        logits = step(torch.tensor([t], device=engine.device), row_lens)
+        row_lens = row_lens + 1
+        out.append(logits.clone())
+    return torch.cat(out).float().cpu()
+
+
+def test_lm_teacher_forced_logits_card_vs_cpu(cuda_device):
+    """Prefill + 32 teacher-forced decode steps (graph replays) in bf16 on
+    the card against the same weights in fp32 on the CPU: the logits within
+    5e-2 of the largest CPU logit (the head is taken in bf16, as in JAX)."""
+    from acestep_torch.llm.generator import LMEngine
+    from acestep_torch.models.lm import build_lm
+
+    cfg, tok, card = _planner_lm(cuda_device, torch.bfloat16)
+    cpu = build_lm(cfg, "cpu", torch.float32)
+    cpu.load_state_dict(card.state_dict())
+    forced = tok.encode("<think>\nbpm: 96\ncaption: slow soul ballad\n")[:32]
+    prompt = "<|im_start|>user\n# Caption\nsoul\n<|im_end|>\n"
+    got = _forced_logits(LMEngine(card, cfg, tok), prompt, forced)
+    want = _forced_logits(LMEngine(cpu, cfg, tok, dtype=torch.float32),
+                          prompt, forced)
+    assert got.shape == want.shape == (len(forced) + 1, tok.vocab_size)
+    assert float((got - want).abs().max() / want.abs().max()) < 5e-2
+
+
+def test_graph_decode_equals_eager_greedy(cuda_device):
+    """Greedy CoT (device FSM, CFG pair) and codes: the CUDA-graph decode
+    step and the eager step give identical tokens."""
+    from acestep_torch.llm.handler import LLMHandler
+
+    cfg, tok, model = _planner_lm(cuda_device, torch.bfloat16)
+    h = LLMHandler(dtype=torch.bfloat16)
+    h.initialize(cfg=cfg, tokenizer=tok, params=model)
+    h.engine.cross_prefix_enabled = False
+    plans = []
+    for graphs in (True, False):
+        h.engine.cuda_graphs = graphs
+        plans.append(h.plan("dark techno", "", target_duration=10, seed=0,
+                            cfg_scale=2.0, metadata_temperature=0.0,
+                            codes_temperature=0.0))
+    assert h.engine.graph_captures > 0
+    assert plans[0] == plans[1]
+    assert plans[0]["audio_codes"].count("<|audio_code_") == 50
+
+
+def test_checkpoint_on_card_equals_cpu(cuda_device, tmp_path):
+    """An upstream-named checkpoint (written from a seeded DiT / VAE) loads
+    to the card in bf16 exactly as it loads to the CPU, cast."""
+    import chip_smoke
+    from acestep_torch.config import DiTConfig, VAEConfig
+    from acestep_torch.pipeline.handler import AceStepHandler
+
+    geom = dict(frame_bucket=20, min_frames=20, refer_frames=10)
+    cfgs = (DiTConfig.tiny(fsq_dim=64), VAEConfig.tiny(
+        decoder_input_channels=64))
+    src = AceStepHandler(*cfgs, dtype=torch.float32, device="cpu", **geom)
+    src.initialize_service(seed=0)
+    dit, vae = str(tmp_path / "dit"), str(tmp_path / "vae")
+    chip_smoke._write_checkpoint(dit, dict(
+        chip_smoke._upstream_dit_name(k, t)
+        for k, t in src.model.state_dict().items()), shards=2)
+    chip_smoke._write_checkpoint(vae, dict(
+        chip_smoke._upstream_vae_name(k, t)
+        for k, t in src.vae.state_dict().items()), shards=1)
+    loaded = {}
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        h = AceStepHandler(*cfgs, dtype=dtype, device=device, **geom)
+        h.initialize_service(checkpoint_dir=dit, vae_dir=vae)
+        loaded[device] = h
+    for mod in ("model", "vae"):
+        card = getattr(loaded["cuda"], mod).state_dict()
+        cpu = getattr(loaded["cpu"], mod).state_dict()
+        assert set(card) == set(cpu)
+        for k, t in cpu.items():
+            assert torch.equal(card[k].cpu(), t.to(torch.bfloat16)), k

@@ -20,6 +20,7 @@ import torch
 
 from acestep_tpu.pipeline.handler import AceStepHandler as JaxHandler
 from acestep_torch import inference as tinf
+from acestep_torch.llm.handler import LLMHandler
 from acestep_torch.pipeline.handler import AceStepHandler
 from torch_parity import highest, np_tree, port_cfg, randn, tiny_dit_cfg, tiny_vae_cfg
 
@@ -92,28 +93,32 @@ def test_seeded_noise_is_deterministic(handlers):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(checkpoint_dir="checkpoints/acestep-v15-turbo"),
+    dict(lm_quantization="w8a8"),
     dict(quantization="int8"),
     dict(quantization="w8a8"),
     dict(lrc=True),
-    dict(llm_handler=object()),
+    dict(lm_tensor_parallel=2),
     dict(want_lrc=True),
 ])
 def test_later_slices_raise_not_implemented(handlers, kwargs, tmp_path):
-    """What later slices bring raises NotImplementedError by name: checkpoint
-    loading, quantization, LRC and the LM planner (the facade returns the
-    error in its result)."""
+    """What later slices bring raises NotImplementedError by name:
+    quantization (DiT and planner), the tensor-parallel planner and LRC
+    (the facade returns the error in its result)."""
     _, th = handlers
-    if "llm_handler" in kwargs or "want_lrc" in kwargs:
+    if "want_lrc" in kwargs:
         res = tinf.generate_music(
-            th, kwargs.get("llm_handler"),
+            th, None,
             tinf.GenerationParams(caption="x", duration=0.8),
             tinf.GenerationConfig(batch_size=1, output_dir=str(tmp_path),
-                                  want_lrc=kwargs.get("want_lrc", False)))
+                                  want_lrc=True))
         assert not res.success and "not ported" in res.error
         return
     with pytest.raises(NotImplementedError, match="not ported"):
-        if "lrc" in kwargs:
+        if "lm_quantization" in kwargs or "lm_tensor_parallel" in kwargs:
+            LLMHandler(dtype=torch.float32, device="cpu").initialize(
+                quantization=kwargs.get("lm_quantization"),
+                tensor_parallel=kwargs.get("lm_tensor_parallel", 1))
+        elif "lrc" in kwargs:
             th.generate_lrc(np.zeros((20, 64), np.float32), "x", "la")
         else:
             AceStepHandler(port_cfg(tiny_dit_cfg()), port_cfg(tiny_vae_cfg()),

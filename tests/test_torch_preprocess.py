@@ -156,6 +156,7 @@ def test_cli_preprocess_then_vanilla_runs_end_to_end(tmp_path):
         state = json.load(f)
     assert state["step"] == 3
     assert state["config"]["timestep_mode"] == "continuous"
-    with pytest.raises(NotImplementedError):
+    # --checkpoint-dir loads an upstream checkpoint: a dir without one fails
+    with pytest.raises(FileNotFoundError, match="no safetensors"):
         tcli.main(["vanilla", *common, "--tensor-dir", tensors,
-                   "--checkpoint-dir", "ckpt"])
+                   "--checkpoint-dir", str(tmp_path / "ckpt")])

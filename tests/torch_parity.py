@@ -10,6 +10,8 @@ product, compounding through the layers of a model).
 
 from __future__ import annotations
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -127,3 +129,34 @@ def jax_draws(cfg, key, bsz, shape, cfg_ratio, discrete):
                                 use_meanflow=False)
     return dict(keep=t(np.asarray(keep).reshape(bsz)), noise=t(x1),
                 t=t(np.asarray(tt)))
+
+
+def capped(h, cot: int = 48, gen: int = 24):
+    """Cap the engine's decode budgets for one block: the modes' own
+    budgets (512-1024 tokens, which random weights never stop early) would
+    dominate the file's time; the caps apply to both packages alike."""
+    eng = h.engine
+    g, c = eng.generate, eng.generate_cot_device
+
+    def gen_(*a, **kw):
+        return g(*a, **{**kw, "max_new_tokens": min(
+            kw.get("max_new_tokens", 512), gen)})
+
+    def cot_(*a, **kw):
+        return c(*a, **{**kw, "max_tokens": min(kw.get("max_tokens", 256),
+                                                 cot)})
+
+    return mock.patch.multiple(eng, generate=gen_, generate_cot_device=cot_)
+
+
+def one_torch_thread():
+    """Generator for a module fixture: run the module's torch ops on one
+    thread, then restore the count. Token-by-token decoding of a tiny LM
+    is a stream of small ops; with several test workers on the machine,
+    each spreading them over every core, they mostly wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
