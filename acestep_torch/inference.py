@@ -305,11 +305,15 @@ def _plan_lm(llm_handler, params: GenerationParams,
     return lm_meta, audio_codes
 
 
-def _audio_entry(dit_handler, params: GenerationParams, res, i: int, path
-                 ) -> Dict[str, Any]:
-    """One per-song result entry: uuid key + reproducibility sidecar. The
-    handler's LoRA state enters both, so the same request under another
-    adapter or scale gets another key."""
+def _audio_entry(dit_handler, params: GenerationParams,
+                 config: GenerationConfig, res, i: int, path,
+                 meta: Dict[str, Any], lyrics: str,
+                 time_costs: Dict[str, Any]) -> Dict[str, Any]:
+    """One per-song result entry: uuid key + reproducibility sidecar, and
+    with `want_lrc` and sung lyrics the LRC and its alignment score (or
+    `lrc_error`), its seconds summed over the batch in `auto_lrc_time`.
+    The handler's LoRA state enters the key and the sidecar, so the same
+    request under another adapter or scale gets another key."""
     p_dict = params.to_dict()
     p_dict["seed"] = res.seeds[i]
     if getattr(dit_handler, "lora", None) is not None:
@@ -329,6 +333,20 @@ def _audio_entry(dit_handler, params: GenerationParams, res, i: int, path
             entry["params_path"] = sidecar
         except OSError:
             pass             # best-effort decoration
+    if config.want_lrc and lyrics.strip().lower() not in (
+            "", "[inst]", "[instrumental]"):
+        t_lrc = time.time()
+        try:
+            lrc = dit_handler.generate_lrc(
+                res.pred_latents[i], meta.get("caption", ""), lyrics,
+                metas={k: v for k, v in meta.items() if k != "caption"},
+                vocal_language=meta.get("language", "en"))
+            entry["lrc"] = lrc["lrc"]
+            entry["alignment_score"] = lrc["score"]
+        except Exception as e:   # noqa: BLE001 — best-effort decoration
+            entry["lrc_error"] = str(e)
+        time_costs["auto_lrc_time"] = (
+            time_costs.get("auto_lrc_time", 0.0) + (time.time() - t_lrc))
     return entry
 
 
@@ -343,9 +361,6 @@ def generate_music(dit_handler, llm_handler=None,
     t0 = time.time()
     time_costs: Dict[str, Any] = {}
     try:
-        if config.want_lrc:
-            raise NotImplementedError(
-                "LRC alignment is not ported yet (scoring slice)")
         lyrics = "[Instrumental]" if params.instrumental and not params.lyrics \
             else params.lyrics
         lm_meta, audio_codes = _plan_lm(llm_handler, params, config,
@@ -406,7 +421,8 @@ def generate_music(dit_handler, llm_handler=None,
         time_costs.update(res.time_costs)
         time_costs["total_time_cost"] = time.time() - t0
         paths = res.audio_paths or [None] * len(res.audios)
-        audios = [_audio_entry(dit_handler, params, res, i, path)
+        audios = [_audio_entry(dit_handler, params, config, res, i, path,
+                               meta, lyrics, time_costs)
                   for i, path in enumerate(paths)]
         for entry, audio in zip(audios, res.audios):
             entry["audio"] = audio

@@ -188,10 +188,6 @@ class LMEngine:
             raise NotImplementedError(
                 "the tensor-parallel LM (mesh=) is not ported yet "
                 "(ROADMAP item 15)")
-        if any(not p.is_floating_point() for p in model.parameters()):
-            raise NotImplementedError(
-                "quantized planner weights are not ported yet "
-                "(ROADMAP item 10)")
         self.model = model
         self.cfg = cfg
         self.tok = tokenizer

@@ -8,8 +8,9 @@ duration*5 codes), CFG with the "NO USER INPUT" negative-prompt convention,
 understand / create-sample / format modes, and output parsing.
 
 One backend: llm/generator.LMEngine, whose decode step replays as a CUDA
-graph on the card. Quantized planners (`quantization=`) and the tensor-
-parallel LM (`tensor_parallel` > 1) are not ported yet and raise.
+graph on the card. Quantized planners (`quantization=`, ops/quant) run
+the same engine; the tensor-parallel LM (`tensor_parallel` > 1) is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -134,16 +135,24 @@ class LLMHandler:
         The KV cache is sized per request from actual lengths, so a larger
         bound costs nothing until a request uses it.
 
-        kv_quant: int8 KV cache (per-vector scales, models/lm.KVCache);
-        off by default."""
-        if quantization:
-            raise NotImplementedError(
-                f"planner quantization {quantization!r} is not ported yet "
-                "(ROADMAP item 10); pass quantization=None")
+        quantization: int8 / fp8 / w8a8 / int4 (or an alias of
+        ops/quant.MODE_ALIASES) stores the trunk's linear weights quantized
+        (`lm_head` excluded). A seeded model is quantized layer by layer as
+        it is drawn; a loaded one in place, module by module. w8a8 adds an
+        int8 copy of the head for the decode window (models/lm.
+        build_head_q) and drops an untied float head.
+
+        kv_quant: int8 KV cache (per-vector scales, models/lm.KVCache).
+        Default follows the weight mode: on for w8a8, off otherwise."""
         if tensor_parallel > 1:
             raise NotImplementedError(
                 "the tensor-parallel LM is not ported yet (ROADMAP item 15)")
-        from acestep_torch.models.lm import QwenLM, build_lm, init_lm_params
+        from acestep_torch.models.lm import (
+            QwenLM, build_head_q, build_lm, init_lm_params,
+        )
+        from acestep_torch.ops.quant import quantize_module_, resolve_mode
+
+        mode = resolve_mode(quantization) if quantization else None
 
         self.max_duration = max_duration
         # device-FSM tables are keyed by metadata only — they encode token
@@ -172,13 +181,22 @@ class LLMHandler:
                                        self.dtype)
         else:
             gen = torch.Generator(self.device).manual_seed(seed)
-            model = init_lm_params(self.cfg, gen, dtype=self.dtype)
+            model = init_lm_params(self.cfg, gen, dtype=self.dtype,
+                                   quantization=mode)
+        if mode:
+            quantize_module_(model, mode, exclude_prefixes=("lm_head",))
+            if mode == "w8a8":
+                model.head_q = build_head_q(model, self.cfg)
+                if not self.cfg.tie_word_embeddings:
+                    del model.lm_head
+        if kv_quant is None:
+            kv_quant = mode == "w8a8"
         if max_len is None:
             # codes budget for the longest plan + 2048 tokens of prompt
             # (system + caption + lyrics + CoT) headroom
             max_len = max(4096, int(max_duration) * 5 + 8 + 2048)
         self.engine = LMEngine(model, self.cfg, self.tokenizer,
-                               dtype=self.dtype, kv_quant=bool(kv_quant),
+                               dtype=self.dtype, kv_quant=kv_quant,
                                max_len=max_len)
         self.tables = TokenTables(self.tokenizer)
         self.genres_vocab = None
@@ -203,8 +221,8 @@ class LLMHandler:
         without exhausting device memory. `size`/`quantization` override
         the tier's first choice; `checkpoint_root` points at a directory
         holding `acestep-5Hz-lm-{size}` checkpoints (random-weight geometry
-        is used when absent). A quantized rung raises NotImplementedError
-        (not ported yet). Returns {"size", "quantization", "downgraded"}."""
+        is used when absent). Returns {"size", "quantization",
+        "downgraded"}."""
         from acestep_torch.runtime_config import (
             get_global_config, lm_fallback_plan)
         from acestep_torch.utils.memory import (

@@ -11,12 +11,13 @@ per layer, and `merge_weights` transposes each layer's delta onto them.
 `merge_weights` returns the merged weights as a name -> tensor mapping, and
 `call_with_weights` runs a function of the model with them in place of its
 parameters (`torch.func.functional_call`): the model is never copied or
-modified.
+modified. Over a quantized base (`ops/quant.QuantWeight`) the merged weight
+takes the empty `weight` slot of the target's storage.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple, TypeVar
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, TypeVar
 
 import torch
 from torch import nn
@@ -44,17 +45,22 @@ def _key(path: Sequence[str]) -> str:
     return ".".join(path)
 
 
-def target_paths(model, targets: Sequence[Tuple[str, ...]] = LORA_TARGETS
+def target_paths(model, targets: Sequence[Tuple[str, ...]] = LORA_TARGETS,
+                 base: Optional[Dict[str, torch.Tensor]] = None
                  ) -> Dict[str, List[torch.Tensor]]:
-    """Map 'self_attn.q_proj' -> the L decoder layers' (out, in) weights."""
+    """Map 'self_attn.q_proj' -> the L decoder layers' (out, in) weights;
+    a weight named in `base` (parameter name -> tensor) is taken from
+    there (a quantized target's materialized weight)."""
+    base = base or {}
     out = {}
     for path in targets:
         weights = []
-        for layer in model.decoder.layers:
+        for i, layer in enumerate(model.decoder.layers):
             node = layer
             for name in path:
                 node = getattr(node, name)
-            weights.append(node.weight)
+            key = f"decoder.layers.{i}.{_key(path)}.weight"
+            weights.append(base[key] if key in base else node.weight)
         out[_key(path)] = weights
     return out
 
@@ -140,14 +146,16 @@ def lokr_delta(adapter_weights: dict, name: str, alpha: float) -> torch.Tensor:
 # ------------------------------------------------------------------
 
 
-def merge_weights(model, weights: dict, scale, meta: dict
+def merge_weights(model, weights: dict, scale, meta: dict,
+                  base: Optional[Dict[str, torch.Tensor]] = None
                   ) -> Dict[str, torch.Tensor]:
     """{parameter name: W + scale * delta} for every layer of every target
     in `weights`, in the base weight's dtype (differentiable in the
-    factors). With `dora_m` the merged weight's per-output norm is replaced
-    by the learned magnitude: W' = m * (W + scale*delta) / ||.||."""
+    factors); W is `base`'s tensor of that name where it has one. With
+    `dora_m` the merged weight's per-output norm is replaced by the
+    learned magnitude: W' = m * (W + scale*delta) / ||.||."""
     kind = meta.get("kind", "lora")
-    bases = target_paths(model, [tuple(n.split(".")) for n in weights])
+    bases = target_paths(model, [tuple(n.split(".")) for n in weights], base)
     merged = {}
     for name, ws in bases.items():
         if kind == "lora":

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from acestep_torch.lora.adapters import adapter_param_count, merge_weights
+from acestep_torch.ops.quant import dequantized_weights
 from acestep_torch.utils.checkpoint import read_safetensors
 
 
@@ -238,8 +239,9 @@ class LoraManager:
     base module is never modified. The merge is cached and rebuilt only
     when the active adapter or its scale changes; the merged copy is
     dropped on `toggle(False)` and when the active adapter is unloaded.
-    A quantized base (the JAX package dequantizes before merging) waits
-    for the port's quantization."""
+    Over a quantized base every quantized weight, w8a8 included, is
+    materialized in bfloat16 first and the effective weights carry them
+    all, as the JAX package dequantizes its whole base before merging."""
 
     def __init__(self, model: torch.nn.Module):
         self._model = model
@@ -339,7 +341,8 @@ class LoraManager:
                 dev = next(self._model.parameters()).device
                 weights = {n: {p: x.to(dev) for p, x in pair.items()}
                            for n, pair in adapter["weights"].items()}
-                self._merged = merge_weights(
+                base = dequantized_weights(self._model)
+                self._merged = {**base, **merge_weights(
                     self._model, weights, self._scales.get(self._active, 1.0),
-                    adapter["meta"])
+                    adapter["meta"], base)}
             return self._merged

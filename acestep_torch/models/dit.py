@@ -506,6 +506,71 @@ def dit_decoder(model: AceStepDiT, cfg: DiTConfig, xt: torch.Tensor,
     return h[:, :T0]
 
 
+def dit_decoder_attn_capture(model: AceStepDiT, cfg: DiTConfig,
+                             xt: torch.Tensor, timestep: torch.Tensor,
+                             timestep_r: torch.Tensor,
+                             context_latents: torch.Tensor,
+                             encoder_hidden_states: torch.Tensor,
+                             capture: dict,
+                             early_exit: Optional[int] = None) -> dict:
+    """Run the decoder's first layers capturing cross-attention
+    probabilities: {layer: (B, len(heads), Tq, Tk) fp32} for `capture`'s
+    {layer: [heads]} (the LRC alignment's early-exit pass). Cross-attention
+    takes the plain path, whose probabilities are the output;
+    self-attention goes through the flash kernel as in `dit_decoder`."""
+    if not capture:
+        raise ValueError("capture must map at least one layer -> heads")
+    p = model.decoder
+    eps = cfg.rms_norm_eps
+    dtype = xt.dtype
+    T0 = xt.shape[1]
+    n_layers = early_exit if early_exit is not None else max(capture) + 1
+    if max(capture) >= n_layers:
+        raise ValueError(
+            f"capture layer {max(capture)} is not run under "
+            f"early_exit={early_exit} — it would be silently skipped")
+
+    _, proj_t = _timestep_embed(p.time_embed, timestep, dtype)
+    _, proj_r = _timestep_embed(p.time_embed_r, timestep - timestep_r, dtype)
+    tproj = proj_t + proj_r
+
+    h = torch.cat([context_latents.to(dtype), xt], dim=-1)
+    pad = (-T0) % cfg.patch_size
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+    h = conv1d(p.proj_in, h, stride=cfg.patch_size)
+    L = h.shape[1]
+    enc = linear(p.condition_embedder, encoder_hidden_states.to(dtype))
+    rope = rope_cos_sin(L, cfg.head_dim, cfg.rope_theta, dtype=dtype,
+                        device=h.device)
+    heads = dict(num_heads=cfg.num_attention_heads,
+                 num_kv_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim,
+                 eps=eps)
+
+    captured = {}
+    for i in range(n_layers):
+        lp = p.layers[i]
+        mods = lp.scale_shift_table[None].to(dtype) + tproj
+        shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = [
+            mods[:, j:j + 1] for j in range(6)]
+        norm_h = rms_norm(lp.self_attn_norm, h, eps) * (1 + scale_msa) \
+            + shift_msa
+        window = cfg.sliding_window if cfg.layer_is_sliding(i) else None
+        h = h + attention_flash(lp.self_attn, norm_h.to(dtype), rope=rope,
+                                window=window, **heads) * gate_msa
+
+        norm_h = rms_norm(lp.cross_attn_norm, h, eps)
+        ca, probs = attention(lp.cross_attn, norm_h, kv_src=enc,
+                              return_weights=True, **heads)
+        if i in capture:
+            captured[i] = probs[:, list(capture[i])].float()
+        h = h + ca
+
+        norm_h = rms_norm(lp.mlp_norm, h, eps) * (1 + c_scale) + c_shift
+        h = (h + mlp(lp.mlp, norm_h.to(dtype)) * c_gate).to(dtype)
+    return captured
+
+
 # ==================================================================
 # Condition preparation
 # ==================================================================

@@ -32,6 +32,7 @@ from acestep_torch.ops.basic import (
     MLP, Attention, RMSNorm, apply_rope, linear, mlp, rms_norm, rope_cos_sin,
     seeded_init_,
 )
+from acestep_torch.ops.quant import int8_mm, quantize_module_, quantize_rows
 
 # ------------------------------------------------------------------
 # Params
@@ -76,12 +77,31 @@ def build_lm(cfg: LMConfig, device, dtype=torch.float32) -> QwenLM:
 
 
 def init_lm_params(cfg: LMConfig, generator: torch.Generator, *,
-                   dtype=torch.float32) -> QwenLM:
+                   dtype=torch.float32,
+                   quantization: Optional[str] = None) -> QwenLM:
     """Seeded LM on `generator`'s device, drawn in `dtype` leaf by leaf (a
     4B planner never exists in float32): embed N(0, 0.02^2), linears
-    N(0, 0.02^2), unit norm scales — the JAX init's distributions."""
-    model = build_lm(cfg, generator.device, dtype)
-    seeded_init_(model, generator)
+    N(0, 0.02^2), unit norm scales — the JAX init's distributions.
+
+    The model is materialized one top-level block at a time, in the order
+    `seeded_init_` draws them; with `quantization` each decoder layer is
+    quantized (ops/quant, `lm_head` excluded) as soon as it is drawn, so
+    the float trunk and its codes are never resident together."""
+    dev = generator.device
+    model = QwenLM(cfg, device="meta", dtype=dtype).requires_grad_(False)
+    model.embed_tokens = nn.Parameter(
+        torch.empty_like(model.embed_tokens, device=dev),
+        requires_grad=False)
+    model.init_own_(generator)
+    blocks = [(f"layers.{i}", lp) for i, lp in enumerate(model.layers)]
+    blocks += [(name, m) for name, m in model.named_children()
+               if name != "layers"]
+    for name, block in blocks:
+        block.to_empty(device=dev)
+        seeded_init_(block, generator)
+        if quantization and name.startswith("layers."):
+            quantize_module_(block, quantization, prefix=name,
+                             exclude_prefixes=("lm_head",))
     return model
 
 
@@ -209,15 +229,6 @@ def _write(c: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
     c[rows, :, positions] = new.to(c.dtype)
 
 
-def _quantize(new: torch.Tensor):
-    """Per head-vector int8 values and float32 scales."""
-    x = new.float()
-    scale = torch.clamp(x.abs().amax(dim=-1, keepdim=True) / 127.0,
-                        min=1e-12)
-    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-    return q, scale
-
-
 def lm_forward(model: QwenLM, cfg: LMConfig, input_ids: torch.Tensor,
                cache: KVCache, *, start_pos,
                attention_mask: Optional[torch.Tensor] = None):
@@ -265,8 +276,8 @@ def lm_forward(model: QwenLM, cfg: LMConfig, input_ids: torch.Tensor,
         k = apply_rope(rms_norm(at.k_norm, k, eps), cos, sin)
         ck, cv = cache.k[i], cache.v[i]
         if quantized:
-            kq, ks = _quantize(k)
-            vq, vs = _quantize(v)
+            kq, ks = quantize_rows(k)       # per head-vector int8
+            vq, vs = quantize_rows(v)
             cks, cvs = cache.k_scale[i], cache.v_scale[i]
             _write(ck, kq, rows, positions)
             _write(cks, ks, rows, positions)
@@ -282,11 +293,39 @@ def lm_forward(model: QwenLM, cfg: LMConfig, input_ids: torch.Tensor,
     return rms_norm(model.norm, x, eps)
 
 
+class HeadQ(nn.Module):
+    """Int8 copy of the output head for w8a8 decoding: `q` (V, H) int8,
+    rows along the vocab, and per-row float32 `scale` (V, 1)."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("scale", scale)
+
+
+@torch.no_grad()
+def build_head_q(model: QwenLM, cfg: LMConfig) -> HeadQ:
+    """Int8 copy of the output head (the tied embedding table or the
+    untied `lm_head`), per-row scales: once the trunk is int8 the head is
+    the largest single read of a decode step. The embedding table stays
+    for gathers, encoding and scoring."""
+    w = (model.embed_tokens if cfg.tie_word_embeddings
+         else model.lm_head.weight).float()                     # (V, H)
+    q, scale = quantize_rows(w)
+    return HeadQ(q, scale)
+
+
 def lm_logits(model: QwenLM, cfg: LMConfig,
               hidden: torch.Tensor) -> torch.Tensor:
     """(B, L, H) -> (B, L, V) float32."""
     if cfg.tie_word_embeddings:
         w = model.embed_tokens.to(hidden.dtype)
+        return (hidden @ w.T).float()
+    if not hasattr(model, "lm_head"):
+        # untied w8a8 drops the float head (`head_q` holds the int8 copy);
+        # this full-vocab path dequantizes it
+        hq = model.head_q
+        w = (hq.q.float() * hq.scale).to(hidden.dtype)
         return (hidden @ w.T).float()
     return linear(model.lm_head, hidden).float()
 
@@ -295,7 +334,17 @@ def lm_logits_slice(model: QwenLM, cfg: LMConfig, hidden: torch.Tensor,
                     start: int, end: int) -> torch.Tensor:
     """Logits restricted to the token-id window [start, end): a contiguous
     row slice of the head, so a decode step reads only the window's head
-    rows (the codes phase samples only the 64k audio-code block)."""
+    rows (the codes phase samples only the 64k audio-code block).
+
+    With `head_q` (a w8a8 LM, `build_head_q`) the window multiplies as
+    int8 x int8 -> int32 with per-token activation scales."""
+    hq = getattr(model, "head_q", None)
+    if hq is not None:
+        q, sc = hq.q[start:end], hq.scale[start:end]             # (Vw, H)
+        xq, xs = quantize_rows(hidden)
+        y = int8_mm(xq.reshape(-1, hidden.shape[-1]), q.t())
+        y = y.reshape(*hidden.shape[:-1], q.shape[0])
+        return y.float() * xs * sc[:, 0]
     w = (model.embed_tokens if cfg.tie_word_embeddings
          else model.lm_head.weight)[start:end]
     return (hidden @ w.to(hidden.dtype).T).float()

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from acestep_torch.ops.quant import quantized_linear
+
 # ------------------------------------------------------------------
 # Parameter modules
 # ------------------------------------------------------------------
@@ -77,7 +79,13 @@ def seeded_init_(module: nn.Module, generator: torch.Generator,
 
 
 def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    y = F.linear(x, p.weight.to(x.dtype))
+    """x @ W.T + b. A quantized weight (`ops/quant.QuantWeight`, whose
+    `weight` slot is empty unless a merged weight is swapped in) computes
+    from its codes: w8a8 as an int8 product, the others dequantized."""
+    if p.weight is None:
+        y = quantized_linear(p, x)
+    else:
+        y = F.linear(x, p.weight.to(x.dtype))
     if p.bias is not None:
         y = y + p.bias.to(x.dtype)
     return y
@@ -151,10 +159,12 @@ def _qkv(p: Attention, x: torch.Tensor, kv_src: torch.Tensor, num_heads: int,
     return q, k, v
 
 
-def _sdpa(q, k, v, mask, *, scale: Optional[float] = None):
+def _sdpa(q, k, v, mask, *, scale: Optional[float] = None,
+          return_weights: bool = False):
     """Grouped-query scaled dot-product attention, fp32 logits and softmax.
 
     q: (B, Lq, Hq, D); k/v: (B, Lk, Hkv, D); mask: bool (B|1, 1, Lq, Lk).
+    With `return_weights`, also the probabilities (B, Hq, Lq, Lk) fp32.
     """
     B, Lq, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -167,7 +177,10 @@ def _sdpa(q, k, v, mask, *, scale: Optional[float] = None):
         logits = logits.masked_fill(~mask[:, :, None, :, :], neg)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
-    return out.reshape(B, Lq, Hq, D)
+    out = out.reshape(B, Lq, Hq, D)
+    if return_weights:
+        return out, probs.reshape(B, Hq, Lq, -1)
+    return out
 
 
 def attention_kv(p: Attention, x: torch.Tensor, k: torch.Tensor,
@@ -198,9 +211,11 @@ def attention(p: Attention, x: torch.Tensor, *, num_heads: int,
               kv_src: Optional[torch.Tensor] = None,
               mask: Optional[torch.Tensor] = None,
               rope: Optional[tuple] = None,
-              eps: float = 1e-6) -> torch.Tensor:
+              eps: float = 1e-6, return_weights: bool = False):
     """Shared self/cross attention: per-head Q/K RMSNorm, RoPE only on the
-    self-attention path, GQA. mask: bool (B|1, 1, Lq, Lk), True = attend."""
+    self-attention path, GQA. mask: bool (B|1, 1, Lq, Lk), True = attend.
+    With `return_weights`, (out, probabilities (B, Hq, Lq, Lk) fp32): the
+    LRC alignment path."""
     is_cross = kv_src is not None
     src = kv_src if is_cross else x
     q, k, v = _qkv(p, x, src, num_heads, num_kv_heads, head_dim, eps)
@@ -208,9 +223,13 @@ def attention(p: Attention, x: torch.Tensor, *, num_heads: int,
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    out = _sdpa(q, k, v, mask)
+    out = _sdpa(q, k, v, mask, return_weights=return_weights)
+    w = None
+    if return_weights:
+        out, w = out
     B, Lq = x.shape[:2]
-    return linear(p.o_proj, out.reshape(B, Lq, num_heads * head_dim))
+    out = linear(p.o_proj, out.reshape(B, Lq, num_heads * head_dim))
+    return (out, w) if return_weights else out
 
 
 def attention_flash(p: Attention, x: torch.Tensor, *, num_heads: int,

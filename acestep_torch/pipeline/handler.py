@@ -13,8 +13,10 @@ ladder and retry. The DiT renders with the effective weights of its
 `LoraManager`. PyTorch runs eagerly, so there are no compiled programs to
 cache; the handler keeps its model modules on one device.
 
-Still raising NotImplementedError by name: quantized weights and LRC
-alignment.
+`initialize_service(quantization=...)` stores the DiT quantized
+(ops/quant); `generate_lrc` aligns lyrics to a render's latents through
+the decoder's cross-attention. Still raising NotImplementedError by name:
+the device mesh (`enable_mesh`).
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from acestep_torch.constants import LATENT_RATE, SAMPLE_RATE, VAE_HOP
 from acestep_torch.lora.adapters import call_with_weights
 from acestep_torch.lora.manager import LoraManager
 from acestep_torch.models.dit import (
-    audio_tokenize, build_dit, init_dit_params, prepare_condition,
+    AceStepDiT, audio_tokenize, build_dit, dit_decoder_attn_capture,
+    init_dit_params, prepare_condition,
 )
 from acestep_torch.models.sampler import (
     ConditionSet, build_continuous_schedule, build_turbo_schedule, renoise,
@@ -44,6 +47,7 @@ from acestep_torch.models.vae import OobleckVAE, init_vae_params
 from acestep_torch.models.vae_tiled import (
     DEFAULT_DECODE_OVERLAP, DEFAULT_ENCODE_CHUNK, tiled_decode, tiled_encode,
 )
+from acestep_torch.ops.quant import quantize_module_, resolve_mode
 from acestep_torch.pipeline import text as textlib
 from acestep_torch.pipeline.embedder import HashTextEmbedder
 from acestep_torch.runtime_config import (
@@ -132,6 +136,7 @@ class AceStepHandler:
         self.min_frames = min_frames
         self.refer_frames = refer_frames
         self.model = None                  # AceStepDiT
+        self.quantization: Optional[str] = None
         self.vae = None                    # OobleckVAE
         self.silence_latent: Optional[np.ndarray] = None   # (1, T, 64)
         self.checkpoint_dir: Optional[str] = None
@@ -158,21 +163,28 @@ class AceStepHandler:
           `silence_latent.pt` becomes the silence latent;
         - `params` / `vae_params`: the JAX package's parameter trees as
           numpy arrays (carried across by utils/weights.py), or an
-          `OobleckVAE` module to share;
+          `AceStepDiT` to use as is / an `OobleckVAE` module to share;
         - otherwise seeded random init on the device from
           `torch.Generator`s seeded `seed` (DiT) and `seed + 1` (VAE).
         With a checkpoint the text encoder is the Qwen3-Embedding trunk
         when one is found locally, else the hash embedder. Attaches a
-        `LoraManager` over the DiT."""
+        `LoraManager` over the DiT.
+
+        `quantization` (int8 / fp8 / w8a8 / int4 or an alias of
+        ops/quant.MODE_ALIASES) stores the DiT's weights quantized, in
+        place, leaving the FSQ tokenizer and detokenizer and the VAE in
+        full precision (the reference's DiT-only filter); every program
+        that reads the DiT then computes from the codes."""
         if quantization:
-            raise _not_ported(f"quantization {quantization!r}",
-                              "quantization")
+            resolve_mode(quantization)        # reject before any load
         self.checkpoint_dir = checkpoint_dir
         silence = None
         if checkpoint_dir:
             from acestep_torch.utils.checkpoint import load_dit_checkpoint
             self.model, silence = load_dit_checkpoint(
                 checkpoint_dir, self.cfg, self.device, self.dtype)
+        elif isinstance(params, AceStepDiT):
+            self.model = params
         elif params is not None:
             self.model = dit_from_jax(
                 params, build_dit(self.cfg, self.device, self.dtype))
@@ -192,6 +204,9 @@ class AceStepHandler:
         else:
             gen = torch.Generator(self.device).manual_seed(seed + 1)
             self.vae = init_vae_params(self.vae_cfg, gen, dtype=self.dtype)
+        self.quantization = quantization
+        if quantization:
+            quantize_module_(self.model, quantization)
         self.silence_latent = silence if silence is not None else np.zeros(
             (1, 15360, self.cfg.audio_acoustic_hidden_dim), np.float32)
         if text_embedder is None and checkpoint_dir:
@@ -229,6 +244,9 @@ class AceStepHandler:
                   f"({e!r}); using the hash embedder")
             return None
         return QwenTextEmbedder(model, cfg, tok, dtype=self.dtype)
+
+    def enable_mesh(self, *args, **kwargs):
+        raise _not_ported("the device mesh (enable_mesh)", "multi-device")
 
     # --------------------------------------------------------------
     # Helpers
@@ -446,8 +464,93 @@ class AceStepHandler:
         return "".join(f"<|audio_code_{int(i)}|>"
                        for i in indices[0].cpu().tolist())
 
-    def generate_lrc(self, *args, **kwargs):
-        raise _not_ported("LRC alignment (generate_lrc)", "scoring/LRC")
+    @torch.no_grad()
+    def generate_lrc(self, pred_latents: np.ndarray, caption: str,
+                     lyrics: str, *, metas=None, vocal_language: str = "en",
+                     infer_steps: int = 8, seed: int = 0,
+                     capture: Optional[dict] = None,
+                     noise: Optional[np.ndarray] = None) -> Dict[str, Any]:
+        """Lyric-timestamp LRC for a generated latent sequence.
+
+        Re-noises x0 at t = 1/infer_steps, runs the decoder's first layers
+        once capturing cross-attention on the alignment layers and heads
+        (clipped to the model's), trims padded query frames, DTWs the
+        lyric span of the attention and formats LRC. `noise` (B, T, 64),
+        for T the bucketed frame count, replaces the draw from a generator
+        seeded `seed` (the seam that lets two frameworks share it).
+        Returns {lrc, sentences, tokens, score}."""
+        from acestep_torch.scoring.alignment import (
+            DEFAULT_CAPTURE, MusicStampsAligner)
+        from acestep_torch.scoring.lyric_score import lyric_alignment_score
+
+        cfg = self.cfg
+        capture = capture or DEFAULT_CAPTURE
+        capture = {layer: [h for h in heads if h < cfg.num_attention_heads]
+                   or [0]
+                   for layer, heads in capture.items()
+                   if layer < cfg.num_hidden_layers} or {0: [0]}
+        x0 = np.asarray(pred_latents, np.float32)
+        if x0.ndim == 2:
+            x0 = x0[None]
+        T_real = x0.shape[1]
+        T = _pad_frames_to(T_real, self.frame_bucket, self.min_frames)
+        if T > T_real:
+            x0 = np.pad(x0, ((0, 0), (0, T - T_real), (0, 0)))
+        B = x0.shape[0]
+        q_real = -(-T_real // cfg.patch_size)          # real query patches
+
+        meta_strs = textlib.parse_metas([metas] if not isinstance(metas, list)
+                                        else metas)
+        text_prompt = textlib.build_text_prompt(
+            textlib.resolve_instruction("text2music"), caption, meta_strs[0])
+        lyric_prompt = textlib.format_lyrics(lyrics, vocal_language)
+        text_h, text_m = self.text_embedder.encode_text([text_prompt] * B)
+        lyric_h, lyric_m = self.text_embedder.encode_lyrics(
+            [lyric_prompt] * B)
+        token_strs = self.text_embedder.lyric_token_strings(lyric_prompt)
+        lyric_len = int(np.asarray(lyric_m)[0].sum())
+        refer_packed, refer_order = self._prepare_refer(None, B)
+        t_small = 1.0 / max(infer_steps, 1)
+
+        silence = self._tensor(self._silence(T)[None])
+        x0_d = self._tensor(x0)
+        if noise is None:
+            gen = torch.Generator(self.device).manual_seed(int(seed))
+            eps = torch.randn(x0_d.shape, generator=gen, device=self.device,
+                              dtype=self.dtype)
+        else:
+            eps = self._tensor(noise)
+
+        def capture_pass(model):
+            enc, _m, ctx = prepare_condition(
+                model, cfg,
+                text_hidden_states=self._tensor(text_h),
+                text_attention_mask=self._tensor(text_m, torch.int32),
+                lyric_hidden_states=self._tensor(lyric_h),
+                lyric_attention_mask=self._tensor(lyric_m, torch.int32),
+                refer_audio_packed=self._tensor(refer_packed),
+                refer_order_mask=self._tensor(refer_order, torch.int32),
+                src_latents=silence.expand(B, T, -1),
+                chunk_masks=torch.ones_like(x0_d),
+                is_covers=torch.zeros((B,), dtype=torch.int32,
+                                      device=self.device),
+                silence_latent=silence)
+            t = torch.full((B,), t_small, dtype=self.dtype,
+                           device=self.device)
+            xt = t_small * eps + (1.0 - t_small) * x0_d
+            return dit_decoder_attn_capture(model, cfg, xt, t, t, ctx, enc,
+                                            capture)
+
+        captured = self._with_weights(capture_pass)
+        # trim padded query frames so DTW only aligns real audio
+        captured = {k: v[:, :, :q_real, :].cpu().numpy()
+                    for k, v in captured.items()}
+        aligner = MusicStampsAligner(patch_size=cfg.patch_size)
+        tokens, sentences, lrc = aligner.get_timestamps_and_lrc(
+            captured, token_strs[:lyric_len], lyric_len=lyric_len)
+        score = lyric_alignment_score(captured, lyric_len)
+        return {"lrc": lrc, "sentences": sentences, "tokens": tokens,
+                "score": score}
 
     # --------------------------------------------------------------
     # Generation

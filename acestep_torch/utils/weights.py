@@ -23,7 +23,7 @@ arrays between numpy and tensors.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +49,23 @@ def _leaf(path: str, name: str, arr: np.ndarray):
     elif name == "b":
         key = f"{path}.bias"
     return key, arr
+
+
+def jax_leaf(key: str, ndim: int) -> Tuple[Tuple[str, ...], int]:
+    """The JAX tree keys and ndim of the leaf that the port's state-dict
+    `key` (of a tensor of `ndim` dims) carries, the inverse of `_flatten`'s
+    naming: `weight` / `bias` are `w` / `b`; `layers.{i}` is entry i of a
+    leaf stacked on a leading axis (one more dim in JAX); any other index
+    is a list position (the VAE's blocks), not a key."""
+    parts = key.split(".")
+    keys, stacked = [], 0
+    for i, part in enumerate(parts):
+        if part.isdigit():
+            stacked += i > 0 and parts[i - 1] == "layers"
+            continue
+        keys.append(part)
+    keys[-1] = {"weight": "w", "bias": "b"}.get(keys[-1], keys[-1])
+    return tuple(keys), ndim + stacked
 
 
 def _flatten(tree, path: str, out: Dict[str, np.ndarray]) -> None:

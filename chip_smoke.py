@@ -66,11 +66,26 @@ Between phases 5 and 6, on phase 5's full-width handler:
   text2music through `generate_music` at 60 s, batch 1, after a warm-up:
   CoT tokens, exactly 300 codes, tokens/s of each phase, K1 and K4
   launches, peak memory and the parsed metadata.
+- quant: for each DiT mode (int8, fp8, w8a8, int4) a small card-vs-CPU
+  reference (the card's codes equal to the CPU's), then phase 5's turbo
+  weights quantized and a 30 s render through the facade (after a
+  warm-up) beside a bf16 one: `quantized_bytes`, peak memory, wall,
+  time_costs, K1 and K4. Then the 16 GB tier, injected as the tier
+  config: `initialize_auto` must pick the 4B planner at w8a8 (int8 KV
+  cache, `head_q`); the 2-layer w8a8 card-vs-CPU logits, graph against
+  eager greedy tokens, the w8a8 decode step beside its bound, and a 60 s
+  thinking request on the w8a8 DiT after a warm-up.
+- lrc: a turbo 60 s request with lyrics and want_lrc=True at 24 layers
+  (DEFAULT_CAPTURE: the capture pass runs 7 layers through K1): LRC
+  lines, the alignment score inside (0, 1), `auto_lrc_time`; the tiny
+  capture pass card against CPU; the PMI reward score of the quant
+  phase's codes under a 2-layer LM, card against CPU.
 
 The launch counts of the kernel table are those of phases 5 and 6 with
-their `tasks` and `adapter` parts, the checkpoint render and the measured
-thinking request. The last two lines are the kernel table and {"ok":
-true, "device": ...}.
+their `tasks` and `adapter` parts, the checkpoint render, the measured
+thinking requests, the quant phase's measured renders and the lrc
+request. The last two lines are the kernel table and {"ok": true,
+"device": ...}.
 """
 
 from __future__ import annotations
@@ -1129,46 +1144,69 @@ def _teacher_forced(engine, prompt: str, forced):
     return torch.cat(out).float().cpu()
 
 
-def _lm_reference():
+def _lm_reference(quantization=None):
+    """Teacher-forced logits of a 2-layer LM at the planner's head
+    geometry, bf16 on the card against the same weights in fp32 on the
+    CPU; with `quantization` both are quantized (each from the same float
+    values, so their codes are equal) and, for w8a8, the vocab is the 4B
+    planner's (padded, as a real planner's is: the head windows' widths
+    are then multiples of 8, as `torch._int_mm` takes them on the card)."""
     import torch
 
     from acestep_torch.config import LMConfig
-    from acestep_torch.llm.generator import LMEngine
+    from acestep_torch.llm.handler import LLMHandler
     from acestep_torch.llm.tokenizer import SimpleTokenizer
     from acestep_torch.models.lm import build_lm, init_lm_params
 
     tok = SimpleTokenizer(num_audio_codes=64_000)
-    cfg = dataclasses.replace(LMConfig.qwen3_4b(), vocab_size=tok.vocab_size,
-                              hidden_size=512, intermediate_size=1024,
-                              num_hidden_layers=2)
+    cfg = dataclasses.replace(
+        LMConfig.qwen3_4b(), hidden_size=512, intermediate_size=1024,
+        num_hidden_layers=2,
+        vocab_size=(LMConfig.qwen3_4b().vocab_size if quantization
+                    else tok.vocab_size))
     card = init_lm_params(cfg, torch.Generator("cuda").manual_seed(4),
                           dtype=torch.bfloat16)
     cpu = build_lm(cfg, "cpu", torch.float32)
     cpu.load_state_dict(card.state_dict())
+    engines = []
+    for model, dtype, device in ((card, torch.bfloat16, None),
+                                 (cpu, torch.float32, "cpu")):
+        llm = LLMHandler(dtype=dtype, device=device)
+        llm.initialize(cfg=cfg, tokenizer=tok, params=model,
+                       quantization=quantization)
+        engines.append(llm.engine)
     prompt = ("<|im_start|>user\n# Caption\nwarm synthwave\n\n# Lyric\n"
               "la la<|im_end|>\n<|im_start|>assistant\n")
     forced = tok.encode("<think>\nbpm: 118\ncaption: neon nights\n")[:32]
     forced += [tok.audio_code_id(i * 997) for i in range(32 - len(forced))]
-    got = _teacher_forced(LMEngine(card, cfg, tok), prompt, forced)
-    want = _teacher_forced(LMEngine(cpu, cfg, tok, dtype=torch.float32),
-                           prompt, forced)
+    got = _teacher_forced(engines[0], prompt, forced)
+    want = _teacher_forced(engines[1], prompt, forced)
     err = float((got - want).abs().max() / want.abs().max())
     if not err < TOL_LM_REFERENCE:
-        raise AssertionError(f"LM card vs CPU: teacher-forced logits rel "
-                             f"err {err:.3e} (tol {TOL_LM_REFERENCE})")
-    return {"logits_rel_err": err, "tol": TOL_LM_REFERENCE,
-            "positions": len(forced) + 1, "layers": cfg.num_hidden_layers,
-            "hidden": cfg.hidden_size, "heads": [cfg.num_attention_heads,
-                                                 cfg.num_key_value_heads],
-            "head_dim": cfg.head_dim}
+        raise AssertionError(f"LM ({quantization}) card vs CPU: teacher-"
+                             f"forced logits rel err {err:.3e} (tol "
+                             f"{TOL_LM_REFERENCE})")
+    return {"quantization": quantization, "logits_rel_err": err,
+            "tol": TOL_LM_REFERENCE, "positions": len(forced) + 1,
+            "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+            "heads": [cfg.num_attention_heads, cfg.num_key_value_heads],
+            "head_dim": cfg.head_dim, "kv_quant": engines[0].kv_quant}
+
+
+def _tensor_bytes(module) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in list(module.parameters()) + list(module.buffers()))
 
 
 def _step_times(engine, rows: int = 2, slots: int = 768, fill: int = 400):
     """One decode step of the planner (rows [cond; uncond], `fill` tokens
-    in a `slots` cache, the CoT's head window): wall ms per step eager and
-    as a graph replay (host included, 64 steps, median of 3 rounds), the
-    replay's device ms (`cuda_ms`), and the step's bound from bytes: every
-    trunk weight, the head window's rows and the attended K/V once."""
+    in a `slots` cache of the engine's kind, the CoT's head window): wall
+    ms per step eager and as a graph replay (host included, 64 steps,
+    median of 3 rounds), the replay's device ms (`cuda_ms`), and the
+    step's bound from bytes: every trunk weight (codes and scales of a
+    quantized one), the head window's rows (the int8 `head_q` rows and
+    their scales for w8a8) and the attended K/V (int8 values and scales
+    in the int8 cache) once."""
     import torch
 
     from acestep_torch.llm.generator import _GraphStep
@@ -1176,7 +1214,7 @@ def _step_times(engine, rows: int = 2, slots: int = 768, fill: int = 400):
 
     cfg, V = engine.cfg, engine.vocab_use
     cache = KVCache.create(cfg, rows, slots, dtype=engine.dtype,
-                           device=engine.device)
+                           quantized=engine.kv_quant, device=engine.device)
     row_lens = torch.full((rows,), fill, dtype=torch.long,
                           device=engine.device)
     toks = torch.zeros(rows, dtype=torch.long, device=engine.device)
@@ -1193,21 +1231,135 @@ def _step_times(engine, rows: int = 2, slots: int = 768, fill: int = 400):
                 calls[name]()
             torch.cuda.synchronize()
             walls[name].append((time.perf_counter() - t0) / 64 * 1e3)
-    trunk = sum(p.numel() * p.element_size()
-                for p in engine.model.layers.parameters())
-    head = V * cfg.hidden_size * 2
+    trunk = _tensor_bytes(engine.model.layers)
+    head_q = getattr(engine.model, "head_q", None)
+    head = V * cfg.hidden_size * (1 if head_q is not None else 2) + \
+        (V * 4 if head_q is not None else 0)
+    per_vec = cfg.head_dim * (1 if engine.kv_quant else 2) + \
+        (4 if engine.kv_quant else 0)
     kv = 2 * cfg.num_hidden_layers * rows * fill * cfg.num_key_value_heads \
-        * cfg.head_dim * 2
-    flops = 2 * rows * (trunk + head) / 2      # 2 per weight (bf16: 2 B)
+        * per_vec
+    weights = sum(p.numel() for p in engine.model.layers.parameters()
+                  if p.dim() >= 2) + sum(
+        b.numel() * (2 if b.dtype == torch.uint8 else 1)
+        for n, b in engine.model.layers.named_buffers()
+        if n.endswith("codes"))
+    flops = 2 * rows * (weights + V * cfg.hidden_size)
     bound_ms, bound_by = bound(flops, trunk + head + kv)
     out = {"eager_wall_ms": statistics.median(walls["eager"]),
            "graph_wall_ms": statistics.median(walls["graph"]),
            "graph_device_ms": cuda_ms(calls["graph"], reps=50),
            "rounds": walls, "bound_ms": bound_ms, "bound_by": bound_by,
-           "bytes": trunk + head + kv, "rows": rows, "slots": slots,
-           "fill": fill, "head_rows": V}
+           "bytes": trunk + head + kv, "trunk_bytes": trunk,
+           "head_bytes": head, "kv_bytes": kv, "rows": rows, "slots": slots,
+           "fill": fill, "head_rows": V, "kv_quant": engine.kv_quant}
     del graph, cache
     return out
+
+
+def _thinking_requests(dit, llm, phase: str, requests):
+    """thinking=True text2music through the facade for each (name,
+    caption, seed) of `requests` (60 s, batch 1): the CoT and codes phases
+    timed on the card, exactly 300 codes, the code-hint render's K1 and K4
+    floors and its audio checked. The kernels' counts are set to 0 before
+    each request, so after the call they hold the last one's launches.
+    Returns the last request's codes."""
+    import torch
+
+    from acestep_torch import inference
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+
+    eng = llm.engine
+    timing = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timing[name] = (time.time() - t, out)
+            return out
+        return wrapper
+
+    codes = None
+    with tempfile.TemporaryDirectory() as out_dir, \
+            mock.patch.object(eng, "generate_cot_device",
+                              timed("cot", eng.generate_cot_device)), \
+            mock.patch.object(eng, "generate_codes",
+                              timed("codes", eng.generate_codes)):
+        for name, caption, seed in requests:
+            captures = eng.graph_captures
+            fa.launches, sc.launches = 0, 0
+            res, k1, k4, wall, peak = _counted(
+                lambda: inference.generate_music(
+                    dit, llm, inference.GenerationParams(
+                        caption=caption,
+                        lyrics="[verse]\nlights on the water\n[chorus]\n"
+                               "hold me close",
+                        duration=60.0, seed=seed, thinking=True),
+                    inference.GenerationConfig(batch_size=1,
+                                               use_random_seed=False,
+                                               output_dir=out_dir)))
+            if not res.success:
+                raise AssertionError(f"{phase} {name}: {res.error}\n"
+                                     f"{res.status_message}")
+            out = res.extra_outputs
+            codes = out["audio_codes"]
+            n_codes = codes.count("<|audio_code_")
+            cot_s, cot_ids = timing["cot"][0], timing["cot"][1][0]
+            codes_s = timing["codes"][0]
+            need_k1 = dit.cfg.num_hidden_layers * 8
+            if n_codes != 300 or k1 < need_k1 or k4 < 1:
+                raise AssertionError(
+                    f"{phase} {name}: {n_codes} codes (want 300), K1 {k1} "
+                    f"(need >= {need_k1}), K4 {k4} launches")
+            _check_audio(name, [e["audio"] for e in res.audios],
+                         1500 * dit.vae_cfg.hop_length)
+            emit(phase=phase, part="thinking", request=name, wall_s=wall,
+                 lm_time_cost=out["time_costs"].get("lm_time_cost"),
+                 cot_tokens=len(cot_ids), cot_s=cot_s,
+                 cot_tokens_per_s=len(cot_ids) / cot_s, codes=n_codes,
+                 codes_s=codes_s, codes_tokens_per_s=n_codes / codes_s,
+                 graph_captures=eng.graph_captures - captures,
+                 k1_launches=k1, k4_launches=k4, max_memory_allocated=peak,
+                 lm_metadata=out["lm_metadata"],
+                 time_costs=out["time_costs"])
+    return codes
+
+
+def _graph_vs_eager(llm, phase: str):
+    """Greedy CoT + codes of a 10 s plan as graph replays and with the
+    eager step (no cross-request prefix: a reused prefix is another
+    prefill shape): the tokens must be identical."""
+    import torch
+
+    eng = llm.engine
+    eng.cross_prefix_enabled = False
+    plans = {}
+    for graphs in (True, False):
+        eng.cuda_graphs = graphs
+        eng._cross_prefix = None
+        t1 = time.time()
+        plans[graphs] = llm.plan(
+            "dark techno, pounding kick, 130 bpm", "[Instrumental]",
+            target_duration=10, seed=0, cfg_scale=2.0,
+            metadata_temperature=0.0, codes_temperature=0.0)
+        torch.cuda.synchronize()
+        plans[graphs]["wall_s"] = time.time() - t1
+    eng.cuda_graphs, eng.cross_prefix_enabled = True, True
+    same = all(plans[True][k] == plans[False][k]
+               for k in ("cot_text", "audio_codes", "metadata"))
+    emit(phase=phase, part="graph_vs_eager", identical=same,
+         cot_tokens=len(llm.tokenizer.encode(plans[True]["cot_text"])),
+         codes=plans[True]["audio_codes"].count("<|audio_code_"),
+         graph_wall_s=plans[True]["wall_s"],
+         eager_wall_s=plans[False]["wall_s"],
+         metadata=plans[True]["metadata"])
+    if not same:
+        raise AssertionError(f"{phase}: graph replays and the eager step "
+                             "decoded different greedy tokens")
 
 
 def phase_planner(turbo):
@@ -1220,7 +1372,6 @@ def phase_planner(turbo):
     K1 and the VAE decode through K4."""
     import torch
 
-    from acestep_torch import inference
     from acestep_torch.llm.handler import LLMHandler
     from acestep_torch.ops import flash_attention as fa
     from acestep_torch.ops import snake_conv as sc
@@ -1243,100 +1394,335 @@ def phase_planner(turbo):
          head_dim=cfg.head_dim, intermediate=cfg.intermediate_size,
          vocab=cfg.vocab_size, vocab_use=llm.engine.vocab_use,
          memory_allocated=torch.cuda.memory_allocated())
-
-    # graph replays against the eager step: greedy, same prompt and seed,
-    # no cross-request prefix (a reused prefix is another prefill shape)
-    eng = llm.engine
-    eng.cross_prefix_enabled = False
-    plans = {}
-    for graphs in (True, False):
-        eng.cuda_graphs = graphs
-        eng._cross_prefix = None
-        t1 = time.time()
-        plans[graphs] = llm.plan(
-            "dark techno, pounding kick, 130 bpm", "[Instrumental]",
-            target_duration=10, seed=0, cfg_scale=2.0,
-            metadata_temperature=0.0, codes_temperature=0.0)
-        torch.cuda.synchronize()
-        plans[graphs]["wall_s"] = time.time() - t1
-    eng.cuda_graphs, eng.cross_prefix_enabled = True, True
-    same = all(plans[True][k] == plans[False][k]
-               for k in ("cot_text", "audio_codes", "metadata"))
-    cot_tokens = len(llm.tokenizer.encode(plans[True]["cot_text"]))
-    emit(phase="planner", part="graph_vs_eager", identical=same,
-         cot_tokens=cot_tokens,
-         codes=plans[True]["audio_codes"].count("<|audio_code_"),
-         graph_wall_s=plans[True]["wall_s"],
-         eager_wall_s=plans[False]["wall_s"],
-         metadata=plans[True]["metadata"])
-    if not same:
-        raise AssertionError("planner: graph replays and the eager step "
-                             "decoded different greedy tokens")
-    steps = _step_times(eng)
-    emit(phase="planner", part="decode_step", **steps)
-
-    # a thinking=True request through the facade, after a warm-up
-    timing = {}
-
-    def timed(name, fn):
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.time()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            timing[name] = (time.time() - t, out)
-            return out
-        return wrapper
-
-    requests = [("warm-up", "lofi hip hop, rainy window, soft keys", 12),
-                ("thinking_60s", "melodic house, airy pads, female vocals",
-                 21)]
-    with tempfile.TemporaryDirectory() as out_dir, \
-            mock.patch.object(eng, "generate_cot_device",
-                              timed("cot", eng.generate_cot_device)), \
-            mock.patch.object(eng, "generate_codes",
-                              timed("codes", eng.generate_codes)):
-        for name, caption, seed in requests:
-            captures = eng.graph_captures
-            fa.launches, sc.launches = 0, 0
-            res, k1, k4, wall, peak = _counted(
-                lambda: inference.generate_music(
-                    turbo, llm, inference.GenerationParams(
-                        caption=caption,
-                        lyrics="[verse]\nlights on the water\n[chorus]\n"
-                               "hold me close",
-                        duration=60.0, seed=seed, thinking=True),
-                    inference.GenerationConfig(batch_size=1,
-                                               use_random_seed=False,
-                                               output_dir=out_dir)))
-            if not res.success:
-                raise AssertionError(f"planner {name}: {res.error}\n"
-                                     f"{res.status_message}")
-            out = res.extra_outputs
-            n_codes = out["audio_codes"].count("<|audio_code_")
-            cot_s, cot_ids = timing["cot"][0], timing["cot"][1][0]
-            codes_s = timing["codes"][0]
-            need_k1 = turbo.cfg.num_hidden_layers * 8
-            if n_codes != 300 or k1 < need_k1 or k4 < 1:
-                raise AssertionError(
-                    f"planner {name}: {n_codes} codes (want 300), K1 {k1} "
-                    f"(need >= {need_k1}), K4 {k4} launches")
-            _check_audio(name, [e["audio"] for e in res.audios],
-                         1500 * turbo.vae_cfg.hop_length)
-            emit(phase="planner", part="thinking", request=name, wall_s=wall,
-                 lm_time_cost=out["time_costs"].get("lm_time_cost"),
-                 cot_tokens=len(cot_ids), cot_s=cot_s,
-                 cot_tokens_per_s=len(cot_ids) / cot_s, codes=n_codes,
-                 codes_s=codes_s, codes_tokens_per_s=n_codes / codes_s,
-                 graph_captures=eng.graph_captures - captures,
-                 k1_launches=k1, k4_launches=k4, max_memory_allocated=peak,
-                 lm_metadata=out["lm_metadata"],
-                 time_costs=out["time_costs"])
+    _graph_vs_eager(llm, "planner")
+    emit(phase="planner", part="decode_step", **_step_times(llm.engine))
+    _thinking_requests(turbo, llm, "planner", [
+        ("warm-up", "lofi hip hop, rainy window, soft keys", 12),
+        ("thinking_60s", "melodic house, airy pads, female vocals", 21)])
     launches = {"K1": fa.launches, "K4": sc.launches, "K2": 0, "K3": 0}
     emit(phase="planner", seconds=time.time() - t0, launches=launches)
-    del llm, eng
+    del llm
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------------
+# quant: the DiT in every quantized mode; the 16 GB tier's w8a8 planner
+# ------------------------------------------------------------------
+
+# w8a8 last: its handler stays for the 16 GB tier's thinking request, and
+# no other mode's render should count its DiT in its peak
+QUANT_MODES = ("int8", "fp8", "int4", "w8a8")
+
+
+def _quant_reference(mode):
+    """The small reference model quantized on the card (bf16) and on the
+    CPU (fp32) from the same values: codes and scales must be equal, then
+    one turbo request on both within TOL_REFERENCE."""
+    import numpy as np
+    import torch
+
+    from acestep_torch.config import DiTConfig, VAEConfig
+    from acestep_torch.ops.quant import QuantWeight, quantize_module_
+
+    gpu, cpu = _reference_pair(DiTConfig.tiny(fsq_dim=64, head_dim=128),
+                               VAEConfig.tiny(decoder_input_channels=64))
+    for h in (gpu, cpu):
+        quantize_module_(h.model, mode)
+    mods = [(a, b) for a, b in zip(gpu.model.modules(), cpu.model.modules())
+            if isinstance(a, QuantWeight)]
+    codes = sum(not torch.equal(a.codes.cpu().view(torch.uint8),
+                                b.codes.view(torch.uint8)) for a, b in mods)
+    scales = sum(not torch.equal(a.scale.cpu(), b.scale) for a, b in mods)
+    if not mods or codes or scales:
+        raise AssertionError(f"quant {mode}: of {len(mods)} weights, the "
+                             f"card's codes differ from the CPU's in {codes},"
+                             f" its scales in {scales}")
+    noise = np.random.default_rng(0).standard_normal((2, 200, 64)).astype(
+        np.float32)
+    return _reference_case(
+        f"quant_{mode}", gpu, cpu, captions=["quant a", "quant b"],
+        lyrics=["la", "da"], audio_duration=8.0, seeds=[1, 2],
+        normalize=False, initial_noise=noise)
+
+
+def _render_30s(handler, name, out_dir, seed=5):
+    """A turbo 30 s text2music request through the facade: (wall s, K1,
+    K4, peak bytes, time_costs), K1/K4 floors and audio checked."""
+    from acestep_torch import inference
+
+    res, k1, k4, wall, peak = _counted(lambda: inference.generate_music(
+        handler, None, inference.GenerationParams(
+            caption="bright funk, slap bass, brass stabs",
+            lyrics="[verse]\nmove your feet\n[chorus]\nall night",
+            duration=30.0, seed=seed, thinking=False),
+        inference.GenerationConfig(batch_size=1, use_random_seed=False,
+                                   output_dir=out_dir)))
+    if not res.success:
+        raise AssertionError(f"{name}: {res.error}\n{res.status_message}")
+    _check_audio(name, [e["audio"] for e in res.audios],
+                 750 * handler.vae_cfg.hop_length)
+    need_k1 = handler.cfg.num_hidden_layers * 8
+    if k1 < need_k1 or k4 < 3:
+        raise AssertionError(f"{name}: K1 {k1} (need >= {need_k1}), K4 {k4} "
+                             "(need >= 3)")
+    return wall, k1, k4, peak, res.extra_outputs["time_costs"]
+
+
+def phase_quant(turbo):
+    """Quantized serving on the card. For each DiT mode: the small
+    card-vs-CPU reference, then phase 5's turbo weights quantized in a
+    handler of their own (sharing phase 5's VAE; phase 5's bf16 DiT waits
+    in host memory, so the peak is the quantized service's) and a 30 s
+    render through the facade after a warm-up, beside a bf16 render.
+    Then the 16 GB tier, injected as the tier config: `initialize_auto`
+    must pick the 4B planner at w8a8 (int8 KV cache, `head_q`, no float
+    head); the 2-layer w8a8 card-vs-CPU logits, graph against eager greedy
+    tokens, the w8a8 decode step's times beside its bound, and a 60 s
+    thinking request (after a warm-up) on the w8a8 DiT. Returns the
+    launches and the measured request's codes."""
+    import torch
+
+    from acestep_torch import runtime_config as rc
+    from acestep_torch.config import DiTConfig, VAEConfig
+    from acestep_torch.llm.handler import LLMHandler
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+    from acestep_torch.ops.quant import quantized_bytes
+    from acestep_torch.pipeline.handler import AceStepHandler
+
+    t0 = time.time()
+    launches = {"K1": 0, "K4": 0, "K2": 0, "K3": 0}
+
+    def count(k1, k4):
+        launches["K1"] += k1
+        launches["K4"] += k4
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        bf16_bytes = quantized_bytes(turbo.model)
+        _render_30s(turbo, "quant bf16 warm-up", out_dir)
+        resident = torch.cuda.memory_allocated()
+        wall, k1, k4, peak, costs = _render_30s(turbo, "quant bf16", out_dir)
+        count(k1, k4)
+        emit(phase="quant", part="render", mode="bf16", dit_bytes=bf16_bytes,
+             wall_s=wall, k1_launches=k1, k4_launches=k4,
+             memory_allocated=resident, max_memory_allocated=peak,
+             time_costs=costs)
+        turbo.model.to("cpu")
+        torch.cuda.empty_cache()
+        dits = {}
+        for mode in QUANT_MODES:
+            ref = _quant_reference(mode)
+            t1 = time.time()
+            h = AceStepHandler(DiTConfig.turbo(), VAEConfig(),
+                               dtype=torch.bfloat16)
+            h.initialize_service(params=copy.deepcopy(turbo.model).to("cuda"),
+                                 vae_params=turbo.vae, quantization=mode)
+            torch.cuda.synchronize()
+            init_s = time.time() - t1
+            _render_30s(h, f"quant {mode} warm-up", out_dir)
+            resident = torch.cuda.memory_allocated()
+            wall, k1, k4, peak, costs = _render_30s(h, f"quant {mode}",
+                                                    out_dir)
+            count(k1, k4)
+            emit(phase="quant", part="render", mode=mode,
+                 dit_bytes=quantized_bytes(h.model),
+                 bytes_vs_bf16=quantized_bytes(h.model) / bf16_bytes,
+                 quantize_s=init_s, wall_s=wall, k1_launches=k1,
+                 k4_launches=k4, memory_allocated=resident,
+                 max_memory_allocated=peak,
+                 time_costs=costs, reference=ref)
+            if mode == "w8a8":
+                dits[mode] = h
+            del h
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        saved = rc._GLOBAL
+        rc.set_global_config(rc.get_tier_config(16.0))
+        try:
+            reference = _lm_reference("w8a8")
+            emit(phase="quant", part="lm_reference", **reference)
+            t1 = time.time()
+            llm = LLMHandler(dtype=torch.bfloat16)
+            picked = llm.initialize_auto()
+            torch.cuda.synchronize()
+            eng = llm.engine
+            model = eng.model
+            if (picked["size"], picked["quantization"]) != ("4B", "w8a8") \
+                    or not eng.kv_quant or not hasattr(model, "head_q") \
+                    or hasattr(model, "lm_head"):
+                raise AssertionError(
+                    f"quant: the 16 GB tier picked {picked}, kv_quant "
+                    f"{eng.kv_quant}, head_q {hasattr(model, 'head_q')}, "
+                    f"lm_head {hasattr(model, 'lm_head')}")
+            emit(phase="quant", part="planner_init", tier=rc._GLOBAL.name,
+                 picked=picked, init_s=time.time() - t1,
+                 lm_bytes=quantized_bytes(model),
+                 memory_allocated=torch.cuda.memory_allocated())
+            _graph_vs_eager(llm, "quant")
+            emit(phase="quant", part="decode_step", **_step_times(eng))
+            codes = _thinking_requests(dits["w8a8"], llm, "quant", [
+                ("warm-up", "lofi hip hop, rainy window, soft keys", 12),
+                ("thinking_60s_w8a8",
+                 "melodic house, airy pads, female vocals", 21)])
+            count(fa.launches, sc.launches)
+        finally:
+            rc.set_global_config(saved)
+    del llm, eng, model, dits
+    gc.collect()
+    torch.cuda.empty_cache()
+    turbo.model.to("cuda")
+    emit(phase="quant", seconds=time.time() - t0, launches=launches)
+    return launches, codes
+
+
+# ------------------------------------------------------------------
+# lrc: lyric timestamps of a full-width render; the PMI reward score
+# ------------------------------------------------------------------
+
+# Cross-attention probabilities of the capture pass, bf16 on the card (K1
+# in the self-attention) against fp32 on the CPU, same weights and inputs:
+# relative to the largest CPU probability, the references' limit.
+TOL_CAPTURE = 5e-2
+# Sums of log-probabilities of ~400-token sequences under a 2-layer LM,
+# bf16 on the card against fp32 on the CPU, same weights: relative to the
+# CPU's sum.
+TOL_REWARD = 5e-2
+
+
+def _capture_reference():
+    import torch
+
+    from acestep_torch.config import DiTConfig
+    from acestep_torch.models.dit import (
+        build_dit, dit_decoder_attn_capture, init_dit_params)
+    from acestep_torch.ops import flash_attention as fa
+
+    cfg = DiTConfig.tiny(fsq_dim=64, head_dim=128)
+    card = init_dit_params(cfg, torch.Generator("cuda").manual_seed(0),
+                           dtype=torch.bfloat16)
+    cpu = build_dit(cfg, "cpu", torch.float32)
+    cpu.load_state_dict(card.state_dict())
+    g = torch.Generator().manual_seed(1)
+    B, T, Lk = 1, 250, 40
+    xt = torch.randn((B, T, 64), generator=g)
+    ctx = torch.randn((B, T, cfg.in_channels - 64), generator=g)
+    enc = torch.randn((B, Lk, cfg.hidden_size), generator=g)
+    tt = torch.full((B,), 0.125)
+    capture = {0: [0, 1], 1: [2]}
+    k1 = fa.launches
+    got = dit_decoder_attn_capture(
+        card, cfg, *(x.to("cuda", torch.bfloat16)
+                     for x in (xt, tt, tt, ctx, enc)), capture)
+    k1 = fa.launches - k1
+    want = dit_decoder_attn_capture(cpu, cfg, xt, tt, tt, ctx, enc, capture)
+    err = max(float((got[i].cpu() - w).abs().max() / w.abs().max())
+              for i, w in want.items())
+    if not err < TOL_CAPTURE or k1 != 2:
+        raise AssertionError(f"capture card vs CPU: rel err {err:.3e} (tol "
+                             f"{TOL_CAPTURE}), K1 {k1} launches (want 2)")
+    return {"probs_rel_err": err, "tol": TOL_CAPTURE, "k1_launches": k1}
+
+
+def _reward_reference(codes: str):
+    """`calculate_reward_score` of `codes` under a 2-layer LM at the
+    planner's head geometry, bf16 on the card against fp32 on the CPU."""
+    import torch
+
+    from acestep_torch.config import LMConfig
+    from acestep_torch.llm.handler import LLMHandler
+    from acestep_torch.llm.tokenizer import SimpleTokenizer
+    from acestep_torch.models.lm import build_lm, init_lm_params
+    from acestep_torch.scoring import calculate_reward_score
+
+    tok = SimpleTokenizer(num_audio_codes=64_000)
+    cfg = dataclasses.replace(LMConfig.qwen3_4b(), hidden_size=512,
+                              intermediate_size=1024, num_hidden_layers=2)
+    card = init_lm_params(cfg, torch.Generator("cuda").manual_seed(6),
+                          dtype=torch.bfloat16)
+    cpu = build_lm(cfg, "cpu", torch.float32)
+    cpu.load_state_dict(card.state_dict())
+    out = {}
+    for name, model, dtype, device in (("card", card, torch.bfloat16, None),
+                                       ("cpu", cpu, torch.float32, "cpu")):
+        llm = LLMHandler(dtype=dtype, device=device)
+        llm.initialize(cfg=cfg, tokenizer=tok, params=model)
+        t1 = time.time()
+        out[name] = calculate_reward_score(
+            llm, codes, caption="melodic house, airy pads, female vocals",
+            lyrics="[verse]\nlights on the water")
+        out[name]["seconds"] = time.time() - t1
+    err = max(abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+              for k in ("cond_logprob", "uncond_logprob"))
+    if not err < TOL_REWARD or not 0.0 < out["card"]["score"] < 1.0:
+        raise AssertionError(f"reward score card vs CPU: rel err {err:.3e} "
+                             f"(tol {TOL_REWARD}), {out}")
+    return {"logprob_rel_err": err, "tol": TOL_REWARD, **out}
+
+
+def phase_lrc(turbo, codes: str):
+    """LRC on the card: a turbo 60 s request with lyrics and want_lrc=True
+    through the facade on phase 5's handler (the decoder's 24 layers,
+    DEFAULT_CAPTURE: the capture pass runs layers 0-6, each through K1);
+    the LRC's lines, its alignment score inside (0, 1), `auto_lrc_time`;
+    then the tiny capture pass card against CPU, and the PMI reward score
+    of the `quant` phase's 300 codes, card against CPU."""
+    import torch
+
+    from acestep_torch import inference
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+    from acestep_torch.scoring.alignment import DEFAULT_CAPTURE
+
+    t0 = time.time()
+    lyrics = ("[verse]\nneon rivers in the rain\nwe were running through "
+              "the night\n[chorus]\nhold on, hold on\nnever let the "
+              "light go out")
+    sung = [ln for ln in lyrics.splitlines() if not ln.startswith("[")]
+    capture_k1 = []
+    generate_lrc = turbo.generate_lrc
+
+    def counted(*a, **kw):
+        before = fa.launches
+        out = generate_lrc(*a, **kw)
+        torch.cuda.synchronize()
+        capture_k1.append(fa.launches - before)
+        return out
+
+    fa.launches, sc.launches = 0, 0
+    with tempfile.TemporaryDirectory() as out_dir, \
+            mock.patch.object(turbo, "generate_lrc", counted):
+        res, k1, k4, wall, peak = _counted(lambda: inference.generate_music(
+            turbo, None, inference.GenerationParams(
+                caption="dreamy synthwave, female vocals", lyrics=lyrics,
+                duration=60.0, seed=8, thinking=False),
+            inference.GenerationConfig(batch_size=1, use_random_seed=False,
+                                       output_dir=out_dir, want_lrc=True)))
+    launches = {"K1": fa.launches, "K4": sc.launches, "K2": 0, "K3": 0}
+    if not res.success:
+        raise AssertionError(f"lrc: {res.error}\n{res.status_message}")
+    entry = res.audios[0]
+    costs = res.extra_outputs["time_costs"]
+    score = entry.get("alignment_score", {}).get("score", -1.0)
+    lines = entry.get("lrc", "").splitlines()
+    want_k1 = max(DEFAULT_CAPTURE) + 1
+    if "lrc_error" in entry or not lines or not 0.0 < score < 1.0 \
+            or capture_k1 != [want_k1] or not costs.get("auto_lrc_time"):
+        raise AssertionError(
+            f"lrc: error {entry.get('lrc_error')}, {len(lines)} lines, "
+            f"score {score}, capture K1 {capture_k1} (want [{want_k1}]), "
+            f"auto_lrc_time {costs.get('auto_lrc_time')}")
+    emit(phase="lrc", part="request", wall_s=wall, lrc_lines=len(lines),
+         lyric_sentences=len(sung), lrc=entry["lrc"],
+         alignment_score=entry["alignment_score"],
+         auto_lrc_time=costs["auto_lrc_time"],
+         capture_k1_launches=capture_k1[0], k1_launches=k1, k4_launches=k4,
+         max_memory_allocated=peak, time_costs=costs)
+    emit(phase="lrc", part="capture_reference", **_capture_reference())
+    emit(phase="lrc", part="reward_reference", **_reward_reference(codes))
+    emit(phase="lrc", seconds=time.time() - t0, launches=launches)
     return launches
 
 
@@ -1573,12 +1959,15 @@ def main() -> None:
     tasks = phase_tasks(handler, k4_per_song)
     checkpoint = phase_checkpoint(handler)
     planner = phase_planner(handler)
+    quant, codes = phase_quant(handler)
+    lrc = phase_lrc(handler, codes)
     del handler
     gc.collect()
     torch.cuda.empty_cache()
     training, adapter = phase_training(k4_per_song)
     launches = {k: text2music[k] + tasks[k] + checkpoint[k] + planner[k]
-                + training[k] + adapter[k] for k in training}
+                + quant[k] + lrc[k] + training[k] + adapter[k]
+                for k in training}
 
     def row(name, source, replaces, cases, rep, n):
         return {"name": name, "route": "cuda", "source": source,

@@ -3,11 +3,12 @@
 GPU.
 
     python3 scripts/torch_lm_profile.py [--size 4B] [--fill 400]
-        [--slots 768] [--duration 60]
+        [--slots 768] [--duration 60] [--quantization w8a8]
 
 Builds the planner of `--size` (`LMConfig.for_size`, bf16, seeded random
-weights, the built-in tokenizer with 64000 audio codes) and prints one
-JSON line:
+weights, the built-in tokenizer with 64000 audio codes; with
+`--quantization`, the trunk quantized in that mode and, for w8a8, the
+int8 head copy and the int8 KV cache) and prints one JSON line:
 
 - `step`: one decode step at rows 2 ([cond; uncond]), `--fill` tokens in a
   `--slots` cache, the CoT's head window: 8 eager steps traced with
@@ -100,6 +101,7 @@ def main() -> None:
     p.add_argument("--fill", type=int, default=400)
     p.add_argument("--slots", type=int, default=768)
     p.add_argument("--duration", type=float, default=60.0)
+    p.add_argument("--quantization", default=None)
     args = p.parse_args()
 
     import torch
@@ -117,11 +119,12 @@ def main() -> None:
     print(card, flush=True)
     llm = LLMHandler(dtype=torch.bfloat16)
     llm.initialize(cfg=LMConfig.for_size(args.size),
-                   tokenizer=SimpleTokenizer(num_audio_codes=64_000))
+                   tokenizer=SimpleTokenizer(num_audio_codes=64_000),
+                   quantization=args.quantization)
     eng = llm.engine
     cfg, V = eng.cfg, eng.vocab_use
     cache = KVCache.create(cfg, 2, args.slots, dtype=eng.dtype,
-                           device=eng.device)
+                           quantized=eng.kv_quant, device=eng.device)
     row_lens = torch.full((2,), args.fill, dtype=torch.long,
                           device=eng.device)
     toks = torch.zeros(2, dtype=torch.long, device=eng.device)
@@ -166,7 +169,9 @@ def main() -> None:
         traced = time.perf_counter() - t0
     ks = kernels_of(prof)
     print(json.dumps({
-        "size": args.size, "rows": 2, "slots": args.slots, "fill": args.fill,
+        "size": args.size, "quantization": args.quantization,
+        "kv_quant": eng.kv_quant, "rows": 2, "slots": args.slots,
+        "fill": args.fill,
         "head_rows": V, "step": step,
         "plan": {"plan_s": plan_s, "traced_s": traced,
                  "cot_tokens": len(llm.tokenizer.encode(res["cot_text"])),

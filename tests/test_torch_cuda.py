@@ -349,9 +349,10 @@ def test_res_unit_stack_gradients_on_card(cuda_device):
 # ------------------------------------------------------------------
 
 
-def _planner_lm(device, dtype, seed=4):
+def _planner_lm(device, dtype, seed=4, vocab_size=None):
     """A 2-layer LM at the planner's head geometry (32/8 heads of 128)
-    over the SimpleTokenizer with 64 audio codes."""
+    over the SimpleTokenizer with 64 audio codes; the vocab is the
+    tokenizer's unless `vocab_size` pads it (as a real planner's is)."""
     import dataclasses
 
     from acestep_torch.config import LMConfig
@@ -359,7 +360,8 @@ def _planner_lm(device, dtype, seed=4):
     from acestep_torch.models.lm import init_lm_params
 
     tok = SimpleTokenizer(num_audio_codes=64)
-    cfg = dataclasses.replace(LMConfig.qwen3_4b(), vocab_size=tok.vocab_size,
+    cfg = dataclasses.replace(LMConfig.qwen3_4b(),
+                              vocab_size=vocab_size or tok.vocab_size,
                               hidden_size=256, intermediate_size=512,
                               num_hidden_layers=2)
     model = init_lm_params(cfg, torch.Generator(device).manual_seed(seed),
@@ -448,3 +450,92 @@ def test_checkpoint_on_card_equals_cpu(cuda_device, tmp_path):
         assert set(card) == set(cpu)
         for k, t in cpu.items():
             assert torch.equal(card[k].cpu(), t.to(torch.bfloat16)), k
+
+
+# ------------------------------------------------------------------
+# Quantization and the LRC capture pass on the card
+# ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows", [2, 17, 1500])
+def test_int8_product_on_card_equals_cpu(cuda_device, rows):
+    """The w8a8 product, int8 x int8 -> int32 (`torch._int_mm`; fewer than
+    17 rows padded with zero rows on the card), at the planner's decode
+    rows and a 60 s song's 1500 patches: exactly the CPU's sums."""
+    from acestep_torch.ops.quant import int8_mm
+
+    g = torch.Generator().manual_seed(rows)
+    a = torch.randint(-127, 128, (rows, 2560), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (1024, 2560), generator=g, dtype=torch.int8)
+    got = int8_mm(a.to(cuda_device), w.to(cuda_device).t())
+    assert got.dtype == torch.int32 and got.shape == (rows, 1024)
+    assert torch.equal(got.cpu(), int8_mm(a, w.t()))
+
+
+def test_int8_product_rejects_what_it_does_not_take(cuda_device):
+    """In-features that are not a multiple of 8 raise; nothing falls back
+    to a float product."""
+    from acestep_torch.ops.quant import int8_mm
+
+    a = torch.ones((32, 12), dtype=torch.int8, device=cuda_device)
+    w = torch.ones((64, 12), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        int8_mm(a, w.t())
+
+
+def test_quantized_graph_decode_equals_eager(cuda_device):
+    """A w8a8 planner (int8 trunk products, `head_q`, int8 KV cache): the
+    CUDA-graph decode step and the eager step give identical greedy
+    tokens. The vocab is padded to 256 rows, as a real planner's is, so
+    the head windows' widths are multiples of 8 (`torch._int_mm`'s rule
+    on the card)."""
+    from acestep_torch.llm.handler import LLMHandler
+
+    cfg, tok, model = _planner_lm(cuda_device, torch.bfloat16,
+                                  vocab_size=256)
+    h = LLMHandler(dtype=torch.bfloat16)
+    h.initialize(cfg=cfg, tokenizer=tok, params=model, quantization="w8a8")
+    assert h.engine.kv_quant and hasattr(h.engine.model, "head_q")
+    h.engine.cross_prefix_enabled = False
+    plans = []
+    for graphs in (True, False):
+        h.engine.cuda_graphs = graphs
+        plans.append(h.plan("dark techno", "", target_duration=10, seed=0,
+                            cfg_scale=2.0, metadata_temperature=0.0,
+                            codes_temperature=0.0))
+    assert h.engine.graph_captures > 0
+    assert plans[0] == plans[1]
+    assert plans[0]["audio_codes"].count("<|audio_code_") == 50
+
+
+def test_attn_capture_card_vs_cpu(cuda_device):
+    """The LRC capture pass of a 2-layer DiT at the kernels' head width:
+    bf16 on the card (self-attention through K1) against fp32 on the CPU,
+    same weights and inputs; probabilities within 5e-2 of the largest CPU
+    probability (the card-vs-CPU references' limit)."""
+    from acestep_torch.config import DiTConfig
+    from acestep_torch.models.dit import build_dit, dit_decoder_attn_capture
+    from acestep_torch.models.dit import init_dit_params
+
+    cfg = DiTConfig.tiny(fsq_dim=64, head_dim=128)
+    card = init_dit_params(cfg, torch.Generator(cuda_device).manual_seed(0),
+                           dtype=torch.bfloat16)
+    cpu = build_dit(cfg, "cpu", torch.float32)
+    cpu.load_state_dict(card.state_dict())
+    g = torch.Generator().manual_seed(1)
+    B, T, Lk = 1, 250, 40
+    xt = torch.randn((B, T, 64), generator=g)
+    ctx = torch.randn((B, T, cfg.in_channels - 64), generator=g)
+    enc = torch.randn((B, Lk, cfg.hidden_size), generator=g)
+    tt = torch.full((B,), 0.125)
+    capture = {0: [0, 1], 1: [2]}
+    before = fa.launches
+    got = dit_decoder_attn_capture(
+        card, cfg, *(x.to(cuda_device, torch.bfloat16)
+                     for x in (xt, tt, tt, ctx, enc)), capture)
+    assert fa.launches - before == 2
+    want = dit_decoder_attn_capture(cpu, cfg, xt, tt, tt, ctx, enc, capture)
+    for layer, w in want.items():
+        g_ = got[layer].cpu()
+        assert g_.shape == w.shape == (B, len(capture[layer]), T // 2, Lk)
+        assert float((g_ - w).abs().max() / w.abs().max()) < 5e-2

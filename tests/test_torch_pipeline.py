@@ -93,37 +93,36 @@ def test_seeded_noise_is_deterministic(handlers):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(lm_quantization="w8a8"),
-    dict(quantization="int8"),
-    dict(quantization="w8a8"),
-    dict(lrc=True),
+    dict(lm_tensor_parallel=2, lm_quantization="w8a8"),
+    dict(mesh=True),
+    dict(auto_tensor_parallel=2),
+    dict(engine_mesh=True),
     dict(lm_tensor_parallel=2),
-    dict(want_lrc=True),
+    dict(lm_tensor_parallel=4, lm_quantization="int4"),
 ])
 def test_later_slices_raise_not_implemented(handlers, kwargs, tmp_path):
-    """What later slices bring raises NotImplementedError by name:
-    quantization (DiT and planner), the tensor-parallel planner and LRC
-    (the facade returns the error in its result)."""
+    """What later slices bring raises NotImplementedError by name: the
+    tensor-parallel planner (quantized or not, also through
+    `initialize_auto`) and the device mesh (the DiT handler's
+    `enable_mesh`, the engine's `mesh=`). Quantization and LRC, which
+    raised here before they were ported, are held against JAX in
+    test_torch_quant.py and test_torch_scoring.py."""
     _, th = handlers
-    if "want_lrc" in kwargs:
-        res = tinf.generate_music(
-            th, None,
-            tinf.GenerationParams(caption="x", duration=0.8),
-            tinf.GenerationConfig(batch_size=1, output_dir=str(tmp_path),
-                                  want_lrc=True))
-        assert not res.success and "not ported" in res.error
-        return
     with pytest.raises(NotImplementedError, match="not ported"):
-        if "lm_quantization" in kwargs or "lm_tensor_parallel" in kwargs:
+        if "mesh" in kwargs:
+            th.enable_mesh(dp=1, tp=2)
+        elif "engine_mesh" in kwargs:
+            from acestep_torch.llm.generator import LMEngine
+            llm = LLMHandler(dtype=torch.float32, device="cpu")
+            llm.initialize(num_fallback_codes=8)
+            LMEngine(llm.engine.model, llm.cfg, llm.tokenizer, mesh=object())
+        elif "auto_tensor_parallel" in kwargs:
+            LLMHandler(dtype=torch.float32, device="cpu").initialize_auto(
+                size="0.6B", tensor_parallel=kwargs["auto_tensor_parallel"])
+        else:
             LLMHandler(dtype=torch.float32, device="cpu").initialize(
                 quantization=kwargs.get("lm_quantization"),
-                tensor_parallel=kwargs.get("lm_tensor_parallel", 1))
-        elif "lrc" in kwargs:
-            th.generate_lrc(np.zeros((20, 64), np.float32), "x", "la")
-        else:
-            AceStepHandler(port_cfg(tiny_dit_cfg()), port_cfg(tiny_vae_cfg()),
-                           dtype=torch.float32, device="cpu",
-                           **GEOM).initialize_service(**kwargs)
+                tensor_parallel=kwargs["lm_tensor_parallel"])
 
 
 def test_facade_generate_music(handlers, tmp_path):
