@@ -4,9 +4,11 @@
 surface of `acestep_tpu/inference.py`, and `generate_music(dit_handler,
 llm_handler=None, params, config)`: the optional 5 Hz LM planning phase
 (CoT metadata, then audio codes that feed the code-hint render), metadata
-merging (user values win), the DiT render, normalisation and saving. The
-planner's other modes: `analyze_input`, `understand_music`, `create_sample`
-and `format_sample`.
+merging (user values win), the DiT render, normalisation and saving.
+`generate_music_group` renders several compatible single-song requests as
+one batch (the serving queue's render coalescing). The planner's other
+modes: `analyze_input`, `understand_music`, `create_sample` and
+`format_sample`.
 """
 
 from __future__ import annotations
@@ -105,9 +107,8 @@ class GenerationConfig:
     seeds: Optional[List[int]] = None
     lm_batch_chunk_size: int = 8
     constrained_decoding_debug: bool = False
-    # wav by default: the native FLAC encoder is not ported yet (flac and
-    # the other compressed formats go through ffmpeg when it is present)
-    audio_format: str = "wav"
+    # the reference's default; the FLAC encoder is native (utils/flac.py)
+    audio_format: str = "flac"
     output_dir: str = "outputs"
     want_lrc: bool = False      # per-result LRC + alignment score
 
@@ -443,6 +444,111 @@ def generate_music(dit_handler, llm_handler=None,
         return GenerationResult(
             audios=[], success=False, error=f"{e}",
             status_message=traceback.format_exc(limit=5))
+
+
+def generate_music_group(dit_handler, llm_handler,
+                         jobs: List[tuple]) -> List[GenerationResult]:
+    """Render N compatible single-song requests as ONE batched render.
+
+    The serving queue drains compatible waiting jobs and fuses their
+    renders into one batch of N rows with per-item conditioning; LM
+    metadata planning stays per request. `jobs` is a list of
+    (GenerationParams, GenerationConfig); the caller guarantees
+    compatibility (serving.server._coalesce_key): task text2music, pinned
+    equal duration, equal sampler and output knobs, no audio inputs, no
+    code hints, batch_size 1, no LRC. Per-item caption, lyrics, metadata,
+    language and seed are honoured: each row draws its noise from its own
+    generator, so item i matches a solo render of its seed up to the
+    batch's numerics. Returns one GenerationResult per job with
+    generate_music's schema, or one `success=False` result per job."""
+    import random as _random
+
+    t0 = time.time()
+    try:
+        per = []
+        for params, config in jobs:
+            lyrics = ("[Instrumental]"
+                      if params.instrumental and not params.lyrics
+                      else params.lyrics)
+            tc: Dict[str, Any] = {}
+            lm_meta, _codes = _plan_lm(llm_handler, params, config,
+                                       lyrics, tc)
+            per.append({"params": params, "config": config,
+                        "lyrics": lyrics,
+                        "meta": _merge_metadata(params, lm_meta),
+                        "lm_meta": lm_meta, "tc": tc})
+        p0, c0 = jobs[0]
+        duration = (float(p0.duration)
+                    if p0.duration and p0.duration > 0 else None)
+        # per-item seeds: each request's pinned seed; a host random for a
+        # use_random_seed job, so items stay independent
+        seeds = []
+        for params, config in jobs:
+            if config.seeds is not None:
+                seeds.append(int(config.seeds[0]))
+            elif params.seed is None or params.seed < 0:
+                seeds.append(_random.randint(0, 2**31 - 1))
+            else:
+                seeds.append(int(params.seed))
+        res = dit_handler.generate_music(
+            captions=[d["meta"].get("caption") or d["params"].caption
+                      for d in per],
+            lyrics=[d["lyrics"] for d in per],
+            metas=[{k: v for k, v in d["meta"].items() if k != "caption"}
+                   for d in per],
+            task=p0.task_type,
+            vocal_languages=[d["meta"].get("language",
+                                           d["params"].vocal_language)
+                             for d in per],
+            audio_duration=duration,
+            batch_size=len(jobs),
+            seeds=seeds,
+            use_random_seed=False,
+            infer_method=p0.infer_method,
+            shift=p0.shift,
+            infer_steps=p0.inference_steps,
+            timesteps=p0.timesteps,
+            guidance_scale=p0.guidance_scale,
+            use_adg=p0.use_adg,
+            cfg_interval=(p0.cfg_interval_start, p0.cfg_interval_end),
+            latent_shift=p0.latent_shift,
+            latent_rescale=p0.latent_rescale,
+            normalize=p0.enable_normalization,
+            normalize_db=p0.normalization_db,
+            save_dir=c0.output_dir,
+            audio_format=c0.audio_format,
+        )
+        shared = dict(res.time_costs)
+        shared["total_time_cost"] = time.time() - t0
+        shared["coalesced_jobs"] = len(jobs)
+        results = []
+        paths = res.audio_paths or [None] * len(res.audios)
+        for i, d in enumerate(per):
+            tc_i = dict(shared)
+            tc_i.update(d["tc"])        # this job's own lm_time_cost
+            entry = _audio_entry(dit_handler, d["params"], d["config"],
+                                 res, i, paths[i], d["meta"], d["lyrics"],
+                                 tc_i)
+            entry["audio"] = res.audios[i]
+            results.append(GenerationResult(
+                audios=[entry],
+                status_message="success",
+                extra_outputs={
+                    "time_costs": tc_i,
+                    "lm_metadata": d["lm_meta"],
+                    "audio_codes": None,
+                    "frames": res.extra.get("frames"),
+                    "task": res.extra.get("task"),
+                    "seeds": [res.seeds[i]],
+                    "coalesced_jobs": len(jobs),
+                    "pred_latents": res.pred_latents[i:i + 1],
+                },
+            ))
+        return results
+    except Exception as e:  # noqa: BLE001 — generate_music's error contract
+        tb = traceback.format_exc(limit=5)
+        return [GenerationResult(audios=[], success=False, error=f"{e}",
+                                 status_message=tb) for _ in jobs]
 
 
 def understand_music(llm_handler, audio_codes: str,

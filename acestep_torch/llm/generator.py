@@ -165,7 +165,10 @@ class _GraphStep:
             step(self.toks, cache, self.row_lens, lo, hi)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # thread-local: in the REST server other threads (HTTP handlers, a
+        # training run) may call CUDA while a worker captures; the
+        # default global mode would invalidate the capture then
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.out = step(self.toks, cache, self.row_lens, lo, hi)
 
     def __call__(self, toks: torch.Tensor, row_lens: torch.Tensor):

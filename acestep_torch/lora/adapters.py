@@ -73,13 +73,15 @@ def target_paths(model, targets: Sequence[Tuple[str, ...]] = LORA_TARGETS,
 def init_lora(generator: torch.Generator, model, *, rank: int = 16,
               alpha: float = 32.0,
               targets: Sequence[Tuple[str, ...]] = LORA_TARGETS,
-              dtype=torch.float32) -> dict:
+              dtype=torch.float32,
+              base: Optional[Dict[str, torch.Tensor]] = None) -> dict:
     """Adapter {meta, weights: {target: {down, up}}} on the generator's
     device: `down` Gaussian / sqrt(in), `up` zeros (the delta starts at 0).
-    Targets are drawn in sorted order, as in the JAX package."""
+    Targets are drawn in sorted order, as in the JAX package; `base` as in
+    `target_paths`."""
     dev = generator.device
     weights = {}
-    for name, ws in sorted(target_paths(model, targets).items()):
+    for name, ws in sorted(target_paths(model, targets, base).items()):
         L, (d_out, d_in) = len(ws), ws[0].shape
         down = torch.randn((L, d_in, rank), generator=generator, device=dev,
                            dtype=dtype) / (d_in ** 0.5)
@@ -114,12 +116,13 @@ def _kron_factor(n: int, max_factor: int) -> Tuple[int, int]:
 def init_lokr(generator: torch.Generator, model, *, factor: int = 8,
               alpha: float = 1.0,
               targets: Sequence[Tuple[str, ...]] = LORA_TARGETS,
-              dtype=torch.float32) -> dict:
+              dtype=torch.float32,
+              base: Optional[Dict[str, torch.Tensor]] = None) -> dict:
     """delta = kron(a, b): a (L, a1, a2) Gaussian / sqrt(a1), b (L, b1, b2)
-    zeros, where in = a1*b1 and out = a2*b2."""
+    zeros, where in = a1*b1 and out = a2*b2; `base` as in `target_paths`."""
     dev = generator.device
     weights = {}
-    for name, ws in sorted(target_paths(model, targets).items()):
+    for name, ws in sorted(target_paths(model, targets, base).items()):
         L, (d_out, d_in) = len(ws), ws[0].shape
         a1, b1 = _kron_factor(d_in, factor)
         a2, b2 = _kron_factor(d_out, factor)

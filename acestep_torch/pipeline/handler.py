@@ -248,6 +248,19 @@ class AceStepHandler:
     def enable_mesh(self, *args, **kwargs):
         raise _not_ported("the device mesh (enable_mesh)", "multi-device")
 
+    def get_service_status(self) -> Dict[str, Any]:
+        """The JAX handler's status keys; `devices` names the handler's
+        torch device (and the card's name on a CUDA device)."""
+        dev = str(self.device)
+        if self.device.type == "cuda":
+            dev += f" {torch.cuda.get_device_name(self.device)}"
+        return {
+            "initialized": self.initialized,
+            "model_version": self.cfg.model_version,
+            "dtype": str(self.dtype).removeprefix("torch."),
+            "devices": [dev],
+        }
+
     # --------------------------------------------------------------
     # Helpers
     # --------------------------------------------------------------
@@ -1015,3 +1028,27 @@ class AceStepHandler:
             extra={"task": task, "spans": spans, "frames": T_req,
                    "schedule": list(schedule),
                    "is_covers": [bool(x) for x in is_cover_rows]})
+
+    # the reference's batch-level entry (service_generate); generate_music
+    # already takes batches
+    service_generate = generate_music
+
+    def warmup(self, durations: Sequence[float] = (10, 30, 60),
+               batch_sizes: Sequence[int] = (1,),
+               infer_steps: int = 8) -> Dict[str, float]:
+        """Run one render per duration and batch size before traffic: on a
+        CUDA device the first builds the kernels (ops/_build) and every
+        render fills the caching allocator and cuDNN's plan cache for its
+        shapes. Returns seconds per warmed shape."""
+        timings: Dict[str, float] = {}
+        for batch in batch_sizes:
+            for duration in durations:
+                t0 = time.time()
+                self.generate_music(
+                    ["warmup"] * batch, ["[inst]"] * batch,
+                    audio_duration=float(duration), batch_size=batch,
+                    seeds=list(range(batch)), infer_steps=infer_steps,
+                    save_dir=None)
+                timings[f"b{batch}_d{int(duration)}"] = round(
+                    time.time() - t0, 2)
+        return timings

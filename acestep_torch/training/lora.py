@@ -70,18 +70,23 @@ def make_lora_train_step(model, cfg: DiTConfig, meta: dict,
                          optimizer: torch.optim.Optimizer, *,
                          grad_clip: Optional[float] = 1.0,
                          discrete_timesteps: Optional[tuple] = None,
-                         cfg_ratio: float = 0.15):
+                         cfg_ratio: float = 0.15,
+                         base_weights: Optional[dict] = None):
     """step(weights, batch, generator=None, **draws) -> loss.
 
     `weights` is the adapter's {target: {part: tensor}} tree, whose leaves
     `optimizer` updates; `batch` holds `training_loss`'s inputs as tensors
     on the model's device; `draws` optionally fixes its keep/noise/t. The
     backward runs inside `call_with_weights`, so the per-layer
-    recomputation (remat) sees the merged weights too."""
+    recomputation (remat) sees the merged weights too. `base_weights`
+    (parameter name -> tensor) stand in for the model's own: a quantized
+    base's dequantized weights (ops/quant.dequantized_weights)."""
+    base = base_weights or {}
+
     def step(weights, batch, generator: Optional[torch.Generator] = None,
              **draws):
         optimizer.zero_grad(set_to_none=True)
-        merged = merge_weights(model, weights, 1.0, meta)
+        merged = {**base, **merge_weights(model, weights, 1.0, meta, base)}
 
         def run(m):
             loss = training_loss(m, cfg, generator=generator,
@@ -113,10 +118,13 @@ class LoRATrainer:
     again, as in the JAX trainer."""
 
     def __init__(self, model, cfg: DiTConfig,
-                 tcfg: Optional[LoRATrainingConfig] = None):
+                 tcfg: Optional[LoRATrainingConfig] = None,
+                 base_weights: Optional[dict] = None):
         self.model = model
         self.cfg = cfg
         self.tcfg = tcfg or LoRATrainingConfig()
+        # a quantized base trains against its dequantized weights
+        self.base_weights = base_weights
         first = next(model.parameters())
         self.device, self.dtype = first.device, first.dtype
 
@@ -164,10 +172,12 @@ class LoRATrainer:
         gen = torch.Generator(self.device).manual_seed(tcfg.seed)
         if tcfg.kind == "lokr":
             adapter = init_lokr(gen, self.model, factor=tcfg.lokr_factor,
-                                alpha=tcfg.alpha, targets=self._targets())
+                                alpha=tcfg.alpha, targets=self._targets(),
+                                base=self.base_weights)
         else:
             adapter = init_lora(gen, self.model, rank=tcfg.rank,
-                                alpha=tcfg.alpha, targets=self._targets())
+                                alpha=tcfg.alpha, targets=self._targets(),
+                                base=self.base_weights)
         weights = adapter["weights"]
         for leaf in _leaves(weights):
             leaf.requires_grad_(True)
@@ -211,7 +221,7 @@ class LoRATrainer:
         step_fn = make_lora_train_step(
             self.model, self.cfg, self._meta(), optimizer,
             grad_clip=tcfg.grad_clip, discrete_timesteps=discrete,
-            cfg_ratio=tcfg.cfg_ratio)
+            cfg_ratio=tcfg.cfg_ratio, base_weights=self.base_weights)
 
         step = start_step
         loss = None     # stays None when stopped before the first step

@@ -1,11 +1,11 @@
-"""Audio I/O: load (stereo, 48 kHz), peak normalization, WAV save,
+"""Audio I/O: load (stereo, 48 kHz), peak normalization, WAV and FLAC save,
 AudioSaver, params -> UUID.
 
-A copy of the parts of `acestep_tpu/utils/audio.py` that the text2music
-and training paths use. WAV is read and written with the stdlib `wave`
-module and resampled with scipy's polyphase filter; other formats (flac,
-mp3, opus, aac, ogg, m4a) go through an external `ffmpeg` binary when one
-is present (the native FLAC codec is not ported yet).
+A copy of the parts of `acestep_tpu/utils/audio.py` that the port uses.
+WAV is read and written with the stdlib `wave` module, FLAC with the
+native codec (utils/flac.py), and audio is resampled with scipy's
+polyphase filter; other formats (mp3, opus, aac, ogg, m4a) go through an
+external `ffmpeg` binary when one is present.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ def _ffmpeg_decode(path, target_sr: int, target_channels: int) -> np.ndarray:
 def load_audio(path: str, *, target_sr: int = SAMPLE_RATE,
                target_channels: int = AUDIO_CHANNELS) -> np.ndarray:
     """Load audio -> float32 (frames, target_channels) at target_sr: WAV
-    natively, anything else through ffmpeg when present."""
+    and 16-bit FLAC natively, anything else through ffmpeg when present."""
     p = Path(path)
     if p.suffix.lower() == ".wav":
         try:
@@ -73,6 +73,19 @@ def load_audio(path: str, *, target_sr: int = SAMPLE_RATE,
         except (ValueError, wave.Error, EOFError):
             # outside the stdlib reader's surface (24-bit, IEEE-float,
             # malformed headers)
+            if not _ffmpeg():
+                raise
+            return _ffmpeg_decode(p, target_sr, target_channels)
+    elif p.suffix.lower() == ".flac":
+        from acestep_torch.utils.flac import decode_flac
+
+        try:
+            with open(p, "rb") as f:
+                pcm, sr = decode_flac(f.read())
+            data = pcm.astype(np.float32) / 32768.0
+        except ValueError:
+            # outside the native decoder's surface (e.g. 24-bit streams):
+            # fall through to ffmpeg when available
             if not _ffmpeg():
                 raise
             return _ffmpeg_decode(p, target_sr, target_channels)
@@ -172,14 +185,15 @@ def save_wav(path: str, audio: np.ndarray, sr: int = SAMPLE_RATE,
 
 
 class AudioSaver:
-    """Multi-format saver: wav/wav32 natively; flac/mp3/opus/aac/ogg/m4a
-    via ffmpeg when available."""
+    """Multi-format saver: wav/wav32/flac natively (flac through
+    utils/flac.py, no ffmpeg needed); mp3/opus/aac/ogg/m4a via ffmpeg when
+    available."""
 
-    NATIVE = {"wav", "wav32"}
-    FFMPEG = {"flac", "mp3", "opus", "aac", "ogg", "m4a"}
+    NATIVE = {"wav", "wav32", "flac"}
+    FFMPEG = {"mp3", "opus", "aac", "ogg", "m4a"}
 
     def __init__(self, output_dir: str = "outputs",
-                 default_format: str = "wav"):
+                 default_format: str = "flac"):
         self.output_dir = Path(output_dir)
         self.default_format = default_format
 
@@ -202,6 +216,15 @@ class AudioSaver:
         if fmt == "wav32":
             return save_wav(self.output_dir / f"{name}.wav", audio, sr,
                             subtype="PCM_32")
+        if fmt == "flac":
+            from acestep_torch.utils.flac import encode_flac
+
+            pcm = np.clip(np.asarray(audio, np.float32) * 32767.0,
+                          -32768, 32767).astype(np.int16)
+            out = self.output_dir / f"{name}.flac"
+            with open(out, "wb") as f:
+                f.write(encode_flac(pcm, sr))
+            return str(out)
         if fmt in self.FFMPEG:
             if not _ffmpeg():
                 raise RuntimeError(f"{fmt} output requires ffmpeg; "

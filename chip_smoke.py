@@ -75,17 +75,37 @@ Between phases 5 and 6, on phase 5's full-width handler:
   cache, `head_q`); the 2-layer w8a8 card-vs-CPU logits, graph against
   eager greedy tokens, the w8a8 decode step beside its bound, and a 60 s
   thinking request on the w8a8 DiT after a warm-up.
+- serving (after the planner, on phase 5's handler and the planner's
+  4B LLMHandler): the port's REST server in this process on 127.0.0.1
+  (ephemeral port, `http.client`). DiT-only first: 4 compatible 60 s
+  thinking=False jobs queued before the workers start fuse into one
+  render (`coalesced_jobs` 4 in every result and in /v1/stats; K1 = 8
+  steps x 24 layers, not 4x that; K4 = the decode's stacks per decode
+  call; each item's latents within TOL_COALESCED of a solo facade render
+  of its seed; songs/s fused and serial); a 30 s request against the
+  facade's render of the same seed (bit-equal expected; the REST wall
+  beside `total_time_cost`). With the planner attached: a 60 s thinking
+  request with /v1/metrics and /v1/stats polled every 50 ms, the
+  planner's graphs dropped first so it captures them during the polls;
+  a chat completion whose audio decodes and /v1/models. A facade request
+  with the default format (flac) decoded back equal to the int16 samples
+  written, `audio_conversion_time` beside a wav save's. The CLI's
+  `--once --no-think` as a subprocess on the card, its flac decoded.
 - lrc: a turbo 60 s request with lyrics and want_lrc=True at 24 layers
   (DEFAULT_CAPTURE: the capture pass runs 7 layers through K1): LRC
   lines, the alignment score inside (0, 1), `auto_lrc_time`; the tiny
   capture pass card against CPU; the PMI reward score of the quant
   phase's codes under a 2-layer LM, card against CPU.
 
+Phase 6 ends with `rest_training`: `/v1/training/start` for 2 LoRA steps
+at full width on the tensors phase 6 preprocessed (K1, K2, K3 counted),
+`/v1/training/status` polled until done, the written adapter loaded.
+
 The launch counts of the kernel table are those of phases 5 and 6 with
-their `tasks` and `adapter` parts, the checkpoint render, the measured
-thinking requests, the quant phase's measured renders and the lrc
-request. The last two lines are the kernel table and {"ok": true,
-"device": ...}.
+their `tasks`, `adapter` and `rest_training` parts, the checkpoint render,
+the measured thinking requests, the serving phase, the quant phase's
+measured renders and the lrc request. The last two lines are the kernel
+table and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -98,6 +118,7 @@ import math
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from unittest import mock
@@ -1369,7 +1390,8 @@ def phase_planner(turbo):
     the eager step (identical tokens), the decode step's times, then a
     thinking=True text2music request through the facade (60 s, batch 1,
     after a warm-up): CoT metadata, 300 codes, the code-hint render through
-    K1 and the VAE decode through K4."""
+    K1 and the VAE decode through K4. Returns (launches, the LLMHandler),
+    which the serving phase reuses."""
     import torch
 
     from acestep_torch.llm.handler import LLMHandler
@@ -1401,7 +1423,464 @@ def phase_planner(turbo):
         ("thinking_60s", "melodic house, airy pads, female vocals", 21)])
     launches = {"K1": fa.launches, "K4": sc.launches, "K2": 0, "K3": 0}
     emit(phase="planner", seconds=time.time() - t0, launches=launches)
-    del llm
+    return launches, llm
+
+
+# ------------------------------------------------------------------
+# serving: the REST server, render coalescing, the chat adapter, FLAC and
+# the CLI, on phase 5's turbo handler and the planner phase's LLMHandler
+# ------------------------------------------------------------------
+
+# served and fused renders against the facade's solo renders of the same
+# seed: relative to the largest solo value (bf16 batch numerics)
+TOL_COALESCED = 5e-2
+SERVED_MODEL = "acestep-v15-turbo"
+
+
+def _rest(port: int, method: str, route: str, body=None):
+    """(status, parsed JSON or raw bytes, seconds) of one HTTP call."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request(method, route, None if body is None else json.dumps(body),
+                 {"Content-Type": "application/json"} if body is not None
+                 else {})
+    resp = conn.getresponse()
+    raw = resp.read()
+    seconds = time.perf_counter() - t0
+    ctype = resp.getheader("Content-Type") or ""
+    conn.close()
+    return (resp.status, json.loads(raw) if "json" in ctype else raw,
+            seconds)
+
+
+def _serve(state, start_workers: bool = True):
+    """The port's server on 127.0.0.1 at an ephemeral port, in a thread:
+    (server, port). Without `start_workers` jobs wait in the queue until
+    `state.start_workers()`."""
+    import threading
+
+    from acestep_torch.serving import server as srv
+
+    with mock.patch.object(state, "start_workers",
+                           state.start_workers if start_workers
+                           else (lambda: None)):
+        server = srv.create_server(state, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, server.server_address[1]
+
+
+def _release(port: int, body: dict) -> str:
+    status, out, _ = _rest(port, "POST", "/release_task", body)
+    if status != 200:
+        raise AssertionError(f"/release_task {status}: {out}")
+    return out["data"]["task_id"]
+
+
+def _wait_task(port: int, task_id: str, timeout: float = 600.0) -> list:
+    """Poll /query_result every 20 ms until the task ends; its result
+    entries (one per song). A failed task raises."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        _, out, _ = _rest(port, "POST", "/query_result",
+                          {"task_id_list": [task_id]})
+        entry = out["data"][0]
+        if entry["status"] == 1:
+            return json.loads(entry["result"])
+        if entry["status"] == 2:
+            raise AssertionError(f"task {task_id} failed: {entry['result']}")
+        time.sleep(0.02)
+    raise AssertionError(f"task {task_id} did not finish in {timeout} s")
+
+
+class _Poller:
+    """Polls GET routes every `every` s in a thread while a request runs:
+    the worst latency of each route, and any status but 200."""
+
+    def __init__(self, port, routes, every=0.05):
+        import threading
+
+        self.port, self.routes, self.every = port, routes, every
+        self.worst = {r: 0.0 for r in routes}
+        self.polls, self.bad = 0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            for route in self.routes:
+                status, _, s = _rest(self.port, "GET", route)
+                self.worst[route] = max(self.worst[route], s)
+                if status != 200:
+                    self.bad.append((route, status))
+            self.polls += 1
+            self._stop.wait(self.every)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def _rel_err(got, want) -> float:
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def _solo(turbo, req_body: dict, out_dir: str):
+    """The facade render of a REST body (the params and config the server
+    builds for it): (GenerationResult, wall s)."""
+    import torch
+
+    from acestep_torch import inference
+    from acestep_torch.serving import server as srv
+    from acestep_torch.serving.schemas import GenerateMusicRequest
+
+    req = GenerateMusicRequest.from_dict(req_body)
+    t0 = time.time()
+    res = inference.generate_music(
+        turbo, None, srv.request_to_params(req), inference.GenerationConfig(
+            batch_size=1, use_random_seed=req.use_random_seed,
+            audio_format=req.audio_format, output_dir=out_dir))
+    torch.cuda.synchronize()
+    if not res.success:
+        raise AssertionError(f"solo render: {res.error}\n"
+                             f"{res.status_message}")
+    return res, time.time() - t0
+
+
+def phase_serving(turbo, llm):
+    """The port's REST server in this process on 127.0.0.1 (an ephemeral
+    port, `http.client`), over phase 5's turbo handler, DiT-only at first:
+    4 compatible 60 s thinking=False jobs queued before the workers start,
+    fused into one render (K1 and K4 counted, each item against a solo
+    render of its seed, songs/s fused and serial); a 30 s request against
+    the facade's render of the same seed. Then with the planner phase's 4B
+    LLMHandler attached: a 60 s thinking request with /v1/metrics and
+    /v1/stats polled every 50 ms (the planner's graphs dropped first, so
+    it captures while the polls run), and a chat completion. Then a facade
+    request with the default format (flac) decoded back against the int16
+    samples written, beside a wav save; and the CLI's `--once` as a
+    subprocess on the card."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from acestep_torch import inference
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+    from acestep_torch.serving import server as srv
+    from acestep_torch.utils import flac_native
+    from acestep_torch.utils.audio import load_wav
+    from acestep_torch.utils.flac import decode_flac, encode_flac
+
+    t_phase = time.time()
+    fa.launches, sc.launches = 0, 0
+    layers = turbo.cfg.num_hidden_layers
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as work:
+        out_dir = os.path.join(work, "outputs")
+        # DiT-only for the thinking=False renders (with a planner attached
+        # the REST default also plans CoT metadata per job, serially,
+        # before the fused render); the planner joins for the thinking
+        # request and the chat completion
+        state = srv.AppState({SERVED_MODEL: turbo}, None, output_dir=out_dir,
+                             persist_dir=os.path.join(work, "persist"))
+        server, port = _serve(state, start_workers=False)
+        try:
+            # -- 2: four compatible 60 s jobs queued before the workers
+            bodies = [dict(prompt=f"deep house, rolling bass, take {i}",
+                           lyrics="[verse]\nmove\n[chorus]\nhigher",
+                           audio_duration=60, seed=40 + i,
+                           use_random_seed=False, thinking=False,
+                           audio_format="wav") for i in range(4)]
+            ids = [_release(port, b) for b in bodies]
+            fused_results = []
+            group_fn = srv.inference.generate_music_group
+
+            def capture_group(*a, **kw):
+                out = group_fn(*a, **kw)
+                fused_results.extend(out)
+                return out
+
+            k1, k4 = fa.launches, sc.launches
+            t0 = time.time()
+            with mock.patch.object(srv.inference, "generate_music_group",
+                                   capture_group), \
+                    _Poller(port, ["/v1/metrics"]) as group_poll:
+                state.start_workers()
+                entries = [_wait_task(port, i) for i in ids]
+            group_wall = time.time() - t0
+            group_k1, group_k4 = fa.launches - k1, sc.launches - k4
+            _, stats, _ = _rest(port, "GET", "/v1/stats")
+            coalesced = [e[0]["time_costs"].get("coalesced_jobs")
+                         for e in entries]
+            if (len(fused_results) != 4 or coalesced != [4] * 4
+                    or stats["data"]["coalesced_jobs_total"] != 4):
+                raise AssertionError(
+                    f"coalescing: {len(fused_results)} fused results, "
+                    f"coalesced_jobs {coalesced}, stats {stats['data']}")
+            # K1 does not grow with the batch; K4 is the VAE decode's C <=
+            # 256 stacks once per decode call, and the handler decodes
+            # each 60 s item of a 4-item batch as its own group
+            want_k4 = 4 * sum(blk.res1.conv1.weight.shape[0] <= 256
+                              for blk in turbo.vae.decoder.blocks)
+            if group_k1 != 8 * layers or group_k4 != want_k4:
+                raise AssertionError(
+                    f"fused group: K1 {group_k1} (want {8 * layers}), K4 "
+                    f"{group_k4} (want {want_k4})")
+            solo_walls, lat_err, audio_err, solo_k = [], [], [], []
+            for body, fused in zip(bodies, fused_results):
+                k1, k4 = fa.launches, sc.launches
+                res, wall = _solo(turbo, body, os.path.join(work, "solo"))
+                solo_k.append((fa.launches - k1, sc.launches - k4))
+                solo_walls.append(wall)
+                lat_err.append(_rel_err(
+                    fused.extra_outputs["pred_latents"][0],
+                    res.extra_outputs["pred_latents"][0]))
+                audio_err.append(_rel_err(fused.audios[0]["audio"],
+                                          res.audios[0]["audio"]))
+            if max(lat_err) > TOL_COALESCED:
+                raise AssertionError(
+                    f"fused items against solo renders: latents rel err "
+                    f"{lat_err} (tol {TOL_COALESCED})")
+            emit(phase="serving", part="coalesced_group", jobs=4,
+                 duration=60.0, wall_s=group_wall,
+                 render_total_time_cost=entries[0][0]["time_costs"][
+                     "total_time_cost"],
+                 k1_launches=group_k1, k4_launches=group_k4,
+                 solo_k1_k4=solo_k, solo_wall_s=solo_walls,
+                 songs_per_s_fused=4 / group_wall,
+                 songs_per_s_serial=4 / sum(solo_walls),
+                 latent_rel_err=lat_err, audio_rel_err=audio_err,
+                 tol=TOL_COALESCED, coalesced_jobs_total=stats["data"][
+                     "coalesced_jobs_total"],
+                 metrics_polls=group_poll.polls,
+                 metrics_worst_s=group_poll.worst["/v1/metrics"],
+                 metrics_bad=group_poll.bad)
+
+            # -- 1: one REST request against the facade's render
+            body = dict(prompt="lofi hip hop, mellow keys, vinyl crackle",
+                        lyrics="[Instrumental]", audio_duration=30, seed=11,
+                        use_random_seed=False, thinking=False,
+                        audio_format="wav")
+            t0 = time.time()
+            entry = _wait_task(port, _release(port, body))[0]
+            rest_wall = time.time() - t0
+            res, solo_wall = _solo(turbo, body, os.path.join(work, "facade"))
+            served, _ = load_wav(entry["file"])
+            facade, _ = load_wav(res.audios[0]["path"])
+            # bit-equal expected (one device, the same code and seed); the
+            # difference is reported, and the run fails past the limit
+            diff = float(np.abs(served - facade).max()) \
+                if served.shape == facade.shape else float("inf")
+            if diff > TOL_COALESCED:
+                raise AssertionError(
+                    f"served 30 s render against the facade's: shapes "
+                    f"{served.shape} / {facade.shape}, max diff {diff}")
+            total = entry["time_costs"]["total_time_cost"]
+            emit(phase="serving", part="rest_request", duration=30.0,
+                 rest_wall_s=rest_wall, render_total_time_cost=total,
+                 rest_overhead_s=rest_wall - total, facade_wall_s=solo_wall,
+                 max_abs_diff_vs_facade=diff, bit_equal=diff == 0.0,
+                 time_costs=entry["time_costs"])
+
+            # -- 3: a thinking request while /v1/metrics and /v1/stats
+            # are polled; the planner's graphs are dropped first so that
+            # it captures them again during the polls
+            state.llm_handler = llm
+            eng = llm.engine
+            eng._graphs = {}
+            captures = eng.graph_captures
+            body = dict(prompt="melodic house, airy pads, female vocals",
+                        lyrics="[verse]\nlights on the water\n[chorus]\n"
+                               "hold me close",
+                        audio_duration=60, seed=21, use_random_seed=False,
+                        thinking=True, audio_format="wav")
+            k1, k4 = fa.launches, sc.launches
+            t0 = time.time()
+            with _Poller(port, ["/v1/metrics", "/v1/stats"]) as poll:
+                entry = _wait_task(port, _release(port, body))[0]
+            wall = time.time() - t0
+            new_captures = eng.graph_captures - captures
+            costs = entry["time_costs"]
+            if (new_captures < 1 or poll.bad or poll.polls < 10
+                    or not costs.get("lm_time_cost")
+                    or fa.launches - k1 < 8 * layers):
+                raise AssertionError(
+                    f"thinking over REST: captures {new_captures}, polls "
+                    f"{poll.polls}, bad {poll.bad}, costs {costs}")
+            emit(phase="serving", part="thinking_rest", duration=60.0,
+                 wall_s=wall, lm_time_cost=costs["lm_time_cost"],
+                 graph_captures=new_captures, polls=poll.polls,
+                 worst_latency_s=poll.worst,
+                 k1_launches=fa.launches - k1, k4_launches=sc.launches - k4,
+                 metas=entry.get("metas"), time_costs=costs)
+
+            # -- 4: the OpenRouter chat adapter
+            status, models, _ = _rest(port, "GET", "/v1/models")
+            names = [m["name"] for m in models["data"]["models"]]
+            status_c, chat, chat_s = _rest(
+                port, "POST", "/v1/chat/completions", {
+                    "model": f"acestep/{SERVED_MODEL}", "seed": 5,
+                    "messages": [{"role": "user", "content":
+                                  "<prompt>warm jazz trio, brushed drums"
+                                  "</prompt><lyrics>[inst]</lyrics>"}],
+                    "audio_config": {"duration": 30, "format": "flac"}})
+            audio = (chat.get("choices") or [{}])[0].get(
+                "message", {}).get("audio") or []
+            url = audio[0]["audio_url"]["url"] if audio else ""
+            pcm, sr = decode_flac(base64.b64decode(url.split(",", 1)[-1])) \
+                if url.startswith("data:audio/flac;base64,") else (None, 0)
+            if (status != 200 or SERVED_MODEL not in names or status_c != 200
+                    or pcm is None or pcm.shape != (750 * 1920, 2)
+                    or sr != 48000):
+                raise AssertionError(
+                    f"chat: models {status} {names}, completion {status_c} "
+                    f"{str(chat)[:300]}")
+            emit(phase="serving", part="chat_completion", wall_s=chat_s,
+                 models=names, samples=int(pcm.shape[0]), sample_rate=sr,
+                 content=chat["choices"][0]["message"]["content"])
+        finally:
+            state.shutdown()
+            server.shutdown()
+            server.server_close()
+
+        # -- 5: FLAC, the facade's default format, beside wav
+        params = inference.GenerationParams(
+            caption="indie rock, jangly guitars", lyrics="[verse]\nla la",
+            duration=60.0, seed=31, thinking=False)
+        saved = {}
+        for fmt in ("flac", "wav"):
+            config = inference.GenerationConfig(
+                batch_size=1, use_random_seed=False,
+                output_dir=os.path.join(work, fmt),
+                **({} if fmt == "flac" else {"audio_format": fmt}))
+            res = inference.generate_music(turbo, None, params, config)
+            if not res.success:
+                raise AssertionError(f"flac phase ({fmt}): {res.error}")
+            saved[fmt] = res
+        entry = saved["flac"].audios[0]
+        want = np.clip(np.asarray(entry["audio"], np.float32) * 32767.0,
+                       -32768, 32767).astype(np.int16)
+        with open(entry["path"], "rb") as f:
+            blob = f.read()
+        got, sr = decode_flac(blob)
+        if not entry["path"].endswith(".flac") or sr != 48000 or \
+                not np.array_equal(got, want):
+            raise AssertionError(f"flac: {entry['path']}, sr {sr}, decoded "
+                                 f"equal {np.array_equal(got, want)}")
+        encode_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            encode_flac(want, 48000)
+            encode_s.append(time.perf_counter() - t0)
+        emit(phase="serving", part="flac", duration=60.0,
+             native=flac_native.native_rice_encode is not None,
+             flac_audio_conversion_time=saved["flac"].extra_outputs[
+                 "time_costs"]["audio_conversion_time"],
+             wav_audio_conversion_time=saved["wav"].extra_outputs[
+                 "time_costs"]["audio_conversion_time"],
+             encode_s=encode_s, flac_bytes=len(blob),
+             wav_bytes=os.path.getsize(saved["wav"].audios[0]["path"]),
+             decoded_equal=True)
+
+    # -- 7: the CLI as a subprocess on the card
+    cli_out = os.path.join("build", "cli_out")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "acestep_torch.cli", "--once", "--no-think",
+         "--duration", "30", "--seed", "1", "--output-dir", cli_out],
+        capture_output=True, text=True, timeout=600)
+    cli_wall = time.time() - t0
+    lines = proc.stdout.strip().splitlines()
+    path = lines[-1] if lines else ""
+    ok = proc.returncode == 0 and path.endswith(".flac") and \
+        os.path.exists(path)
+    if ok:
+        with open(path, "rb") as f:
+            pcm, sr = decode_flac(f.read())
+        ok = pcm.shape == (750 * 1920, 2) and sr == 48000
+    if not ok:
+        raise AssertionError(f"cli --once: rc {proc.returncode}, stdout "
+                             f"{proc.stdout[-800:]}, stderr "
+                             f"{proc.stderr[-1500:]}")
+    emit(phase="serving", part="cli_once", wall_s=cli_wall, path=path,
+         samples=int(pcm.shape[0]))
+    launches = {"K1": fa.launches, "K4": sc.launches, "K2": 0, "K3": 0}
+    emit(phase="serving", seconds=time.time() - t_phase, launches=launches)
+    return launches
+
+
+def phase_rest_training(tensors: str, work: str):
+    """LoRA training over REST: `/v1/training/start` for 2 steps at full
+    width (DiTConfig.turbo(), rank 16, batch 1) on the tensors the
+    training phase preprocessed, on a seeded turbo handler; polls
+    `/v1/training/status` until done, counts K1/K2/K3 and loads the
+    written adapter."""
+    import torch
+
+    from acestep_torch.config import DiTConfig, VAEConfig
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+    from acestep_torch.pipeline.handler import AceStepHandler
+    from acestep_torch.serving import server as srv
+
+    t0 = time.time()
+    handler = AceStepHandler(DiTConfig.turbo(), VAEConfig(),
+                             dtype=torch.bfloat16)
+    handler.initialize_service(seed=0)
+    state = srv.AppState({SERVED_MODEL: handler}, None,
+                         output_dir=os.path.join(work, "rest_outputs"),
+                         persist_dir=os.path.join(work, "rest_persist"))
+    server, port = _serve(state)
+    out = os.path.join(work, "rest_lora")
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    sc.launches = 0
+    try:
+        t_train = time.time()
+        status, started, _ = _rest(port, "POST", "/v1/training/start", {
+            "dataset_dir": tensors, "config": {
+                "max_steps": 2, "rank": 16, "batch_size": 1,
+                "checkpoint_every": 0, "log_every": 1, "output_dir": out,
+                "adapter_name": "rest_lora"}})
+        if status != 200:
+            raise AssertionError(f"/v1/training/start {status}: {started}")
+        deadline = time.time() + 600
+        while time.time() < deadline:
+            _, st, _ = _rest(port, "GET", "/v1/training/status")
+            if st["data"]["status"] in ("completed", "failed", "stopped"):
+                break
+            time.sleep(0.2)
+        train_wall = time.time() - t_train
+        _, metrics, _ = _rest(port, "GET", "/v1/training/metrics")
+    finally:
+        state.shutdown()
+        server.shutdown()
+        server.server_close()
+    data = st["data"]
+    launches = {"K1": fa.launches, "K2": fa.launches_bwd_dq,
+                "K3": fa.launches_bwd_dkv, "K4": sc.launches}
+    layers = handler.cfg.num_hidden_layers
+    need = {"K1": 2 * 2 * layers, "K2": 2 * layers, "K3": 2 * layers}
+    if data["status"] != "completed" or data.get("step") != 2 or \
+            data.get("adapter_loaded") != "rest_lora" or \
+            any(launches[k] < n for k, n in need.items()):
+        raise AssertionError(f"REST training: status {data}, launches "
+                             f"{launches} (need {need})")
+    path = os.path.join(out, "rest_lora.npz")
+    _check_adapter(path)
+    emit(phase="rest_training", steps=data["step"], loss=data["loss"],
+         train_wall_s=train_wall, metrics_points=metrics["data"]["points"],
+         adapter=path, adapter_loaded=data["adapter_loaded"],
+         launches=launches, need=need, seconds=time.time() - t0)
+    del handler, state
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1752,12 +2231,17 @@ def _check_adapter(path: str) -> None:
 
 def phase_training(k4_per_song: int):
     """preprocess -> vanilla (8 steps) -> resume from checkpoint_4, through
-    the port's training CLI at full width, in a temporary directory; then
-    the trained adapter at inference (`phase_adapter`)."""
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
+    the port's training CLI at full width, in a temporary directory under
+    ./build (inside the server's safe root for user paths); then the
+    trained adapter at inference (`phase_adapter`) and LoRA training over
+    REST on the same tensors (`phase_rest_training`)."""
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
+                                     dir=os.path.abspath("build")) as work:
         training = _training_in(work, k4_per_song)
         adapter = phase_adapter(os.path.join(work, "lora", "adapter.npz"))
-    return training, adapter
+        rest = phase_rest_training(os.path.join(work, "tensors"), work)
+    return training, adapter, rest
 
 
 def phase_adapter(path: str):
@@ -1958,16 +2442,20 @@ def main() -> None:
     k4_per_song = k4_launches_per_song(handler)
     tasks = phase_tasks(handler, k4_per_song)
     checkpoint = phase_checkpoint(handler)
-    planner = phase_planner(handler)
+    planner, llm = phase_planner(handler)
+    serving = phase_serving(handler, llm)
+    del llm
+    gc.collect()
+    torch.cuda.empty_cache()
     quant, codes = phase_quant(handler)
     lrc = phase_lrc(handler, codes)
     del handler
     gc.collect()
     torch.cuda.empty_cache()
-    training, adapter = phase_training(k4_per_song)
+    training, adapter, rest_training = phase_training(k4_per_song)
     launches = {k: text2music[k] + tasks[k] + checkpoint[k] + planner[k]
-                + quant[k] + lrc[k] + training[k] + adapter[k]
-                for k in training}
+                + serving[k] + quant[k] + lrc[k] + training[k] + adapter[k]
+                + rest_training[k] for k in training}
 
     def row(name, source, replaces, cases, rep, n):
         return {"name": name, "route": "cuda", "source": source,

@@ -539,3 +539,157 @@ def test_attn_capture_card_vs_cpu(cuda_device):
         g_ = got[layer].cpu()
         assert g_.shape == w.shape == (B, len(capture[layer]), T // 2, Lk)
         assert float((g_ - w).abs().max() / w.abs().max()) < 5e-2
+
+
+# ------------------------------------------------------------------
+# serving on the card: a tiny DiT at the kernels' head width
+# ------------------------------------------------------------------
+
+
+def _tiny_service(device):
+    from acestep_torch.config import DiTConfig, VAEConfig
+    from acestep_torch.pipeline.handler import AceStepHandler
+
+    h = AceStepHandler(DiTConfig.tiny(fsq_dim=64, head_dim=128),
+                       VAEConfig.tiny(decoder_input_channels=64),
+                       dtype=torch.bfloat16, frame_bucket=25, min_frames=25,
+                       refer_frames=10, device=device)
+    h.initialize_service(seed=0)
+    return h
+
+
+def _serve(state):
+    import threading
+
+    from acestep_torch.serving.server import create_server
+
+    server = create_server(state, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, server.server_address[1]
+
+
+def _call(port, method, route, body=None):
+    import http.client
+    import json
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request(method, route, None if body is None else json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    raw = resp.read()
+    conn.close()
+    return resp.status, raw
+
+
+def _run_task(port, body, timeout=300.0):
+    import json
+    import time
+
+    _, raw = _call(port, "POST", "/release_task", body)
+    tid = json.loads(raw)["data"]["task_id"]
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        _, raw = _call(port, "POST", "/query_result", {"task_id_list": [tid]})
+        entry = json.loads(raw)["data"][0]
+        if entry["status"]:
+            return entry
+        time.sleep(0.02)
+    raise TimeoutError(tid)
+
+
+def test_tiny_server_serves_a_render_on_card(cuda_device, tmp_path):
+    """One REST text2music request on the card: K1 and K4 launch, the
+    result is a flac that decodes, /v1/metrics reports the allocator."""
+    import json
+
+    from acestep_torch.serving.server import AppState
+    from acestep_torch.utils.flac import decode_flac
+
+    h = _tiny_service(cuda_device)
+    state = AppState({"tiny": h}, None, output_dir=str(tmp_path / "out"),
+                     persist_dir=str(tmp_path / "persist"))
+    server, port = _serve(state)
+    try:
+        k1, k4 = fa.launches, sc.launches
+        entry = _run_task(port, {"prompt": "x", "thinking": False,
+                                 "audio_duration": 2, "seed": 3,
+                                 "use_random_seed": False,
+                                 "audio_format": "flac"})
+        status, metrics = _call(port, "GET", "/v1/metrics")
+    finally:
+        state.shutdown()
+        server.shutdown()
+        server.server_close()
+    assert entry["status"] == 1, entry
+    path = json.loads(entry["result"])[0]["file"]
+    with open(path, "rb") as f:
+        pcm, sr = decode_flac(f.read())
+    assert sr == 48000 and pcm.shape == (50 * 8, 2)
+    assert fa.launches > k1 and sc.launches > k4
+    assert status == 200 and b"acestep_hbm_bytes_in_use" in metrics
+
+
+def test_metrics_polled_while_the_planner_captures(cuda_device, tmp_path):
+    """A thinking request over REST whose planner captures its decode
+    graphs on a worker thread while another thread polls /v1/metrics and
+    /v1/stats: the request succeeds, the graphs were captured, every poll
+    answered 200."""
+    import threading
+
+    from acestep_torch.llm.handler import LLMHandler
+    from acestep_torch.serving.server import AppState
+
+    cfg, tok, model = _planner_lm(cuda_device, torch.bfloat16)
+    llm = LLMHandler(dtype=torch.bfloat16)
+    llm.initialize(cfg=cfg, tokenizer=tok, params=model)
+    h = _tiny_service(cuda_device)
+    state = AppState({"tiny": h}, llm, output_dir=str(tmp_path / "out"),
+                     persist_dir=str(tmp_path / "persist"))
+    server, port = _serve(state)
+    stop, polls = threading.Event(), []
+
+    def poll():
+        while not stop.is_set():
+            for route in ("/v1/metrics", "/v1/stats"):
+                polls.append(_call(port, "GET", route)[0])
+            stop.wait(0.02)
+
+    poller = threading.Thread(target=poll)
+    try:
+        poller.start()
+        entry = _run_task(port, {"prompt": "dark techno", "thinking": True,
+                                 "audio_duration": 10, "seed": 1,
+                                 "use_random_seed": False})
+    finally:
+        stop.set()
+        poller.join()
+        state.shutdown()
+        server.shutdown()
+        server.server_close()
+    assert entry["status"] == 1, entry
+    assert llm.engine.graph_captures > 0
+    assert len(polls) > 4 and set(polls) == {200}
+
+
+def test_fused_group_launches_k1_as_one_render(cuda_device, tmp_path):
+    """A fused group of 3 jobs launches K1 as often as one single render
+    (once per decoder layer per step): launches do not grow with the
+    batch."""
+    from acestep_torch import inference
+
+    h = _tiny_service(cuda_device)
+
+    def job(i):
+        return (inference.GenerationParams(caption=f"song {i}", duration=2.0,
+                                           seed=i, thinking=False),
+                inference.GenerationConfig(batch_size=1,
+                                           output_dir=str(tmp_path)))
+
+    before = fa.launches
+    solo = inference.generate_music(h, None, *job(0))
+    single = fa.launches - before
+    before = fa.launches
+    group = inference.generate_music_group(h, None, [job(i) for i in range(3)])
+    fused = fa.launches - before
+    assert solo.success and all(r.success for r in group)
+    assert single == fused == h.cfg.num_hidden_layers * 8

@@ -5,6 +5,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -42,3 +44,62 @@ def test_chip_smoke_imports_without_jax():
                "assert not any(m == 'jax' or m.startswith(('jax.', "
                "'acestep_tpu')) for m in sys.modules)\n")
     assert res.returncode == 0, res.stderr
+
+
+def _import_scan_files():
+    return sorted(str(p.relative_to(ROOT))
+                  for p in (ROOT / "acestep_torch").rglob("*.py")) + [
+        "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "acestep_tpu")
+
+
+def _jax_imports(source: str, filename: str = "<src>"):
+    """(line, module) of every import statement in `source` that names jax
+    or the JAX package, at module level or inside a function, class or
+    branch, and of `importlib.import_module` / `__import__` calls with a
+    literal name."""
+    import ast
+
+    bad = []
+    for node in ast.walk(ast.parse(source, filename=filename)):
+        if isinstance(node, ast.Import):
+            bad += [(node.lineno, a.name) for a in node.names
+                    if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                node.module and _forbidden(node.module):
+            bad.append((node.lineno, node.module))
+        elif isinstance(node, ast.Call) and node.args and \
+                isinstance(node.args[0], ast.Constant) and \
+                isinstance(node.args[0].value, str) and \
+                getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and \
+                _forbidden(node.args[0].value):
+            bad.append((node.lineno, node.args[0].value))
+    return bad
+
+
+@pytest.mark.parametrize("rel", _import_scan_files())
+def test_no_jax_import_at_any_depth(rel):
+    """Every import of the port and of chip_smoke.py, at any depth, names
+    neither jax nor the JAX package: importing a module alone would miss
+    one inside a function, which would fail only where it runs."""
+    bad = _jax_imports((ROOT / rel).read_text(), rel)
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_import_scan_catches_imports_at_any_depth():
+    """The scan's own control: imports it must catch and ones it must
+    leave alone."""
+    src = ("import os\n"
+           "def f():\n"
+           "    from acestep_tpu.utils import flac\n"
+           "    class C:\n"
+           "        import jax.numpy as jnp\n"
+           "    if True:\n"
+           "        importlib.import_module('jax')\n"
+           "    from acestep_torch.utils import flac as g\n")
+    assert _jax_imports(src) == [(3, "acestep_tpu.utils"), (5, "jax.numpy"),
+                                 (7, "jax")]

@@ -137,7 +137,7 @@ def test_facade_generate_music(handlers, tmp_path):
         # 30 frames pad to the 20-frame bucket (40); the crop to
         # frames * 1920 samples only bites at the real hop
         assert entry["audio"].shape == (40 * 8, 2)
-        assert entry["path"].endswith(".wav") and entry["params_path"]
+        assert entry["path"].endswith(".flac") and entry["params_path"]
     # code hints turn a text2music request into a cover
     cover = tinf.generate_music(th, None, tinf.GenerationParams(
         caption="x", duration=1.0, audio_codes="<|audio_code_1|>"),
