@@ -5,20 +5,23 @@ status codes, auth, uploads, result cache, cancel and render coalescing.
 POST /release_task enqueues a generation job and returns a task_id; POST
 /query_result batch-polls results from a TTL cache; plus /health,
 /v1/stats, /metrics (also /v1/metrics), /v1/models, /create_random_sample,
-/format_input, /v1/lora/*, /v1/training/*, /v1/reinitialize,
-/v1/chat/completions and GET /v1/audio. Responses use the `{"data",
-"code", "error", "timestamp", "extra"}` envelope and the integer status
-codes (queued/running=0, succeeded=1, failed=2) of the reference server
-(acestep/api_server.py).
+/format_input, /v1/lora/*, /v1/training/*, /v1/dataset/*,
+/v1/reinitialize, /v1/chat/completions and GET /v1/audio. Responses use
+the `{"data", "code", "error", "timestamp", "extra"}` envelope and the
+integer status codes (queued/running=0, succeeded=1, failed=2) of the
+reference server (acestep/api_server.py).
 
 One process owns the CUDA device; generation runs on worker threads pulled
 from one queue, and compatible queued text2music jobs fuse into one
-batched render (`_coalesce_key`, inference.generate_music_group). HTTP
-threads make no CUDA call that could disturb a render or the planner's
-CUDA-graph capture on a worker: /metrics reads the caching allocator's
-counters and a device total read once at start-up. The /v1/dataset/*
-routes answer with an error: dataset building waits for ROADMAP item
-12.3.
+batched render (`_coalesce_key`, inference.generate_music_group). Every
+device user takes `AppState.reinit_lock`: weight swaps, renders, each
+call into the planner (the worker's analysis, sample and format jobs and
+the /create_random_sample and /format_input routes), and the dataset
+service's device stages. /metrics makes no CUDA call: it reads the
+caching allocator's counters and a device total read once at start-up.
+The /v1/dataset/* routes (the staged dataset build and the interactive
+dataset session) run their device work on the dataset service's own
+threads (serving/training_service.py).
 """
 
 from __future__ import annotations
@@ -70,10 +73,6 @@ def _user_path(p: Optional[str]) -> Optional[str]:
 QUEUE_MAXSIZE = 200
 INITIAL_AVG_JOB_SECONDS = 30.0
 STATUS_MAP = {"queued": 0, "running": 0, "succeeded": 1, "failed": 2}
-DATASET_NOT_PORTED = (
-    "dataset building, labeling and the dataset session "
-    "(/v1/dataset/*) are not ported yet: they come with ROADMAP item 12.3 "
-    "of the PyTorch port (acestep_tpu has them)")
 
 
 def wrap_response(data: Any, code: int = 200,
@@ -247,14 +246,21 @@ class AppState:
         self.pending_ids: List[str] = []
         self.pending_lock = threading.Lock()
         self.stats_lock = threading.Lock()
-        self.reinit_lock = threading.Lock()   # weights swap vs generation
+        # the one device lock: weight swaps, renders, every call into the
+        # planner (its generator shares a KV arena, captured graphs and a
+        # prefix cache) and the dataset service's device stages
+        self.reinit_lock = threading.Lock()
         self.started_at = time.time()
         self.avg_job_seconds = INITIAL_AVG_JOB_SECONDS
         self.completed_jobs = 0
         self.examples_dir = examples_dir
-        from acestep_torch.serving.training_service import TrainingService
+        from acestep_torch.serving.training_service import (
+            DatasetService, TrainingService)
         self.training = TrainingService(
             self.dit_handlers[self.default_model])
+        self.dataset = DatasetService(
+            self.dit_handlers[self.default_model], llm_handler,
+            lock=self.reinit_lock)
         # the default handler's device; the device total is read here,
         # once, so /metrics never calls CUDA while a worker renders
         self.device = getattr(self.dit_handlers[self.default_model],
@@ -651,8 +657,9 @@ class AppState:
                     else:
                         raise ValueError(
                             "analysis requires src audio or audio_codes")
-                    analysis = inference.understand_music(
-                        llm_handler, codes, temperature=0.3).to_dict()
+                    with self.reinit_lock:
+                        analysis = inference.understand_music(
+                            llm_handler, codes, temperature=0.3).to_dict()
                     analysis["audio_codes"] = codes
                     if analysis.get("success"):
                         self.job_store.mark_succeeded(job_id, {
@@ -675,7 +682,8 @@ class AppState:
                 # no codes phase (ref api_server.py:1887-1899); the facade
                 # helper honors the full LM knob surface (pinned metadata,
                 # constrained toggle, sampling knobs, request seed)
-                plan = inference.analyze_input(llm_handler, params)
+                with self.reinit_lock:
+                    plan = inference.analyze_input(llm_handler, params)
                 if plan.get("success"):
                     meta = plan.get("metadata", {})
                     self.job_store.mark_succeeded(job_id, {
@@ -693,19 +701,19 @@ class AppState:
                 self._cache_result(job_id)
                 return
 
-            if req.sample_mode or req.sample_query:
-                sample = inference.create_sample(llm_handler, req.sample_query)
-                if sample.get("success"):
-                    params.caption = sample.get("caption", params.caption)
-                    params.lyrics = sample.get("lyrics", params.lyrics)
-            elif req.use_format:
-                fmt = inference.format_sample(llm_handler, params.caption,
-                                              params.lyrics)
-                if fmt.get("success"):
-                    params.caption = fmt.get("caption", params.caption)
-                    params.lyrics = fmt.get("lyrics", params.lyrics)
-
             with self.reinit_lock:
+                if req.sample_mode or req.sample_query:
+                    sample = inference.create_sample(llm_handler,
+                                                     req.sample_query)
+                    if sample.get("success"):
+                        params.caption = sample.get("caption", params.caption)
+                        params.lyrics = sample.get("lyrics", params.lyrics)
+                elif req.use_format:
+                    fmt = inference.format_sample(llm_handler, params.caption,
+                                                  params.lyrics)
+                    if fmt.get("success"):
+                        params.caption = fmt.get("caption", params.caption)
+                        params.lyrics = fmt.get("lyrics", params.lyrics)
                 result = inference.generate_music(
                     dit_handler, llm_handler, params, config)
             payload = _result_payload(result)
@@ -920,9 +928,6 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(wrap_response(None, code=401, error="Unauthorized"),
                         status=401)
 
-    def _dataset_not_ported(self) -> None:
-        self._send_json(wrap_response(None, 501, DATASET_NOT_PORTED), 501)
-
     # -- dispatch -----------------------------------------------------------
 
     def do_GET(self) -> None:  # noqa: N802
@@ -987,8 +992,29 @@ class _Handler(BaseHTTPRequestHandler):
                 qs = parse_qs(url.query)
                 self._send_json(wrap_response(self.state.training.metrics(
                     output_dir=(qs.get("output_dir") or [None])[0])))
-            elif route.startswith("/v1/dataset/"):
-                self._dataset_not_ported()
+            elif route == "/v1/dataset/status":
+                self._send_json(wrap_response(self.state.dataset.status()))
+            elif route == "/v1/dataset/samples":
+                self._dataset_call(self.state.dataset.samples)
+            elif route.startswith("/v1/dataset/sample/"):
+                idx = route.rsplit("/", 1)[-1]
+                if not idx.lstrip("-").isdigit():
+                    self._send_json(wrap_response(None, 400,
+                                                  "bad sample index"), 400)
+                else:
+                    self._dataset_call(self.state.dataset.sample, int(idx))
+            elif route == "/v1/dataset/auto_label_status" or \
+                    route.startswith("/v1/dataset/auto_label_status/"):
+                tid = (route.rsplit("/", 1)[-1]
+                       if route != "/v1/dataset/auto_label_status" else None)
+                self._dataset_call(self.state.dataset.task_status,
+                                   "auto_label", tid)
+            elif route == "/v1/dataset/preprocess_status" or \
+                    route.startswith("/v1/dataset/preprocess_status/"):
+                tid = (route.rsplit("/", 1)[-1]
+                       if route != "/v1/dataset/preprocess_status" else None)
+                self._dataset_call(self.state.dataset.task_status,
+                                   "preprocess", tid)
             elif route in ("/", "/studio"):
                 self._serve_studio()
             else:
@@ -1065,8 +1091,67 @@ class _Handler(BaseHTTPRequestHandler):
             elif route == "/v1/training/tensorboard/stop":
                 self._send_json(wrap_response(
                     self.state.training.tensorboard_stop()))
-            elif route.startswith("/v1/dataset/"):
-                self._dataset_not_ported()
+            elif route == "/v1/dataset/build":
+                self.state.ensure_initialized()   # builder encodes audio
+                try:
+                    out = self.state.dataset.start(
+                        _user_path(body.get("audio_dir", "")),
+                        _user_path(body.get("out_dir") or os.path.join(
+                            body.get("audio_dir", ""), "_dataset")),
+                        val_fraction=float(body.get("val_fraction", 0.0)),
+                        use_llm_labels=bool(body.get("use_llm_labels", True)))
+                    self._send_json(wrap_response(out))
+                except FileNotFoundError as e:
+                    self._send_json(wrap_response(None, 404, str(e)), 404)
+                except RuntimeError as e:
+                    self._send_json(wrap_response(None, 409, str(e)), 409)
+            elif route == "/v1/dataset/scan":
+                self.state.ensure_initialized()   # labeling encodes audio
+                self._dataset_call(
+                    self.state.dataset.scan,
+                    _user_path(body.get("audio_dir", "")),
+                    dataset_name=str(body.get("dataset_name",
+                                              "my_lora_dataset")),
+                    custom_tag=str(body.get("custom_tag", "")),
+                    tag_position=str(body.get("tag_position", "replace")),
+                    all_instrumental=bool(body.get("all_instrumental",
+                                                   True)))
+            elif route == "/v1/dataset/load":
+                self._dataset_call(self.state.dataset.load_session,
+                                   _user_path(body.get("dataset_path", "")))
+            elif route == "/v1/dataset/save":
+                self._dataset_call(
+                    self.state.dataset.save_session,
+                    _user_path(body.get("save_path", "")),
+                    dataset_name=body.get("dataset_name"),
+                    custom_tag=body.get("custom_tag"),
+                    tag_position=body.get("tag_position"),
+                    all_instrumental=body.get("all_instrumental"),
+                    genre_ratio=body.get("genre_ratio"))
+            elif route in ("/v1/dataset/auto_label",
+                           "/v1/dataset/auto_label_async"):
+                self.state.ensure_initialized()
+                self._dataset_call(
+                    self.state.dataset.auto_label,
+                    skip_metas=bool(body.get("skip_metas", False)),
+                    format_lyrics=bool(body.get("format_lyrics", False)),
+                    transcribe_lyrics=bool(body.get("transcribe_lyrics",
+                                                    False)),
+                    only_unlabeled=bool(body.get("only_unlabeled", False)),
+                    save_path=(_user_path(body["save_path"])
+                               if body.get("save_path") else None),
+                    run_async=route.endswith("_async"))
+            elif route in ("/v1/dataset/preprocess",
+                           "/v1/dataset/preprocess_async"):
+                self.state.ensure_initialized()
+                self._dataset_call(
+                    self.state.dataset.preprocess,
+                    _user_path(body.get("output_dir", "")),
+                    skip_existing=bool(body.get("skip_existing", False)),
+                    run_async=route.endswith("_async"))
+            elif route.startswith("/v1/dataset/sample/"):
+                # POST alias for clients that cannot send PUT
+                self._dataset_update_sample(route, body)
             elif route == "/v1/training/load_tensor_info":
                 self._tensor_info(body)
             elif route == "/v1/training/export":
@@ -1079,20 +1164,43 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(wrap_response(None, 500, str(e)), 500)
 
     def do_PUT(self) -> None:  # noqa: N802
-        """PUT /v1/dataset/sample/{idx} — edit one sample (not ported
-        yet: ROADMAP item 12.3)."""
+        """PUT /v1/dataset/sample/{idx} — edit one sample (reference
+        train_api_dataset_service.py:854)."""
         route = urlparse(self.path).path.rstrip("/")
         body = self._json_body()
         if not self.state.check_auth(body, self.headers.get("Authorization")):
             self._unauthorized()
             return
         try:
-            if route.startswith("/v1/dataset/"):
-                self._dataset_not_ported()
+            if route.startswith("/v1/dataset/sample/"):
+                self._dataset_update_sample(route, body)
             else:
                 self._send_json(wrap_response(None, 404, "Not found"), 404)
         except Exception as e:
             self._send_json(wrap_response(None, 500, str(e)), 500)
+
+    # -- dataset session helpers ---------------------------------------------
+
+    def _dataset_call(self, fn, *args, **kwargs) -> None:
+        """Shared error mapping for the interactive dataset routes: missing
+        session/model -> 400, unknown index/task -> 404."""
+        try:
+            self._send_json(wrap_response(fn(*args, **kwargs)))
+        except FileNotFoundError as e:
+            self._send_json(wrap_response(None, 404, str(e)), 404)
+        except (IndexError, KeyError) as e:
+            self._send_json(wrap_response(None, 404, str(e)), 404)
+        except RuntimeError as e:
+            self._send_json(wrap_response(None, 400, str(e)), 400)
+
+    def _dataset_update_sample(self, route: str,
+                               body: Dict[str, Any]) -> None:
+        idx = route.rsplit("/", 1)[-1]
+        if not idx.lstrip("-").isdigit():
+            self._send_json(wrap_response(None, 400, "bad sample index"),
+                            400)
+            return
+        self._dataset_call(self.state.dataset.update_sample, int(idx), body)
 
     # -- endpoints ----------------------------------------------------------
 
@@ -1246,8 +1354,9 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(wrap_response(random.choice(examples)))
             return
         self.state.ensure_initialized()   # lazy startup: LM on first use
-        sample = inference.create_sample(self.state.llm_handler,
-                                         body.get("query", ""))
+        with self.state.reinit_lock:
+            sample = inference.create_sample(self.state.llm_handler,
+                                             body.get("query", ""))
         if sample.get("success"):
             self._send_json(wrap_response(sample))
         else:
@@ -1257,9 +1366,11 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _format_input(self, body: Dict[str, Any]) -> None:
         self.state.ensure_initialized()   # lazy startup: LM on first use
-        out = inference.format_sample(self.state.llm_handler,
-                                      body.get("caption", body.get("prompt", "")),
-                                      body.get("lyrics", ""))
+        with self.state.reinit_lock:
+            out = inference.format_sample(
+                self.state.llm_handler,
+                body.get("caption", body.get("prompt", "")),
+                body.get("lyrics", ""))
         code = 200 if out.get("success") else 500
         self._send_json(wrap_response(out, code, out.get("error")), code)
 
@@ -1735,6 +1846,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                   f" quant={info['quantization']}"
                   f"{' (downgraded)' if info['downgraded'] else ''}")
         state.llm_handler = llm
+        state.dataset.llm = llm      # the builder labels with the planner
 
     if args.no_init:
         state._lazy_init = load_models

@@ -5,28 +5,39 @@
     python -m acestep_torch.training.cli vanilla --tensor-dir tensors \
         --output-dir lora_output --max-steps 2000
     python -m acestep_torch.training.cli fixed ...
+    python -m acestep_torch.training.cli estimate --tensor-dir tensors
+    python -m acestep_torch.training.cli full --tensor-dir tensors \
+        --output-dir full_train --max-steps 10000 [--resume-from latest]
+    python -m acestep_torch.training.cli dataset --audio-dir songs \
+        --out-dir ds [--label]
     python -m acestep_torch.training.cli presets
 
-Port of the `preprocess`, `vanilla` (LoRA/LoKr, discrete turbo shift-3
-timesteps), `fixed` (continuous logit-normal timesteps) and `presets`
-subcommands of `acestep_tpu/training/cli.py`. The model is the full-width
-turbo DiT (`--tiny`: the miniature test config) with seeded random
-weights, on the CUDA device in bf16 unless `--device cpu` (float32, the
-plain versions of the kernels). `vanilla`/`fixed` append every progress
-event to `<output-dir>/metrics.jsonl` ({"step", "loss", "ts"}).
+Port of `acestep_tpu/training/cli.py`: `preprocess` (manifest -> tensor
+dir), `vanilla` (LoRA/LoKr, discrete turbo shift-3 timesteps), `fixed`
+(continuous logit-normal timesteps), `estimate` (rank the decoder
+projections by gradient sensitivity), `full` (every parameter, checkpoints
+under `<output-dir>/checkpoints/<step>/`, `--resume-from latest|<step>`),
+`dataset` (audio dir -> scan, encode, label, manifest, tensors; `--label`
+captions with the 5 Hz planner) and `presets`. The model is the
+full-width turbo DiT (`--tiny`: the miniature test config) with seeded
+random weights, on the CUDA device in bf16 unless `--device cpu`
+(float32, the plain versions of the kernels). `vanilla`/`fixed` append
+every progress event to `<output-dir>/metrics.jsonl` ({"step", "loss",
+"ts"}); `full`, as JAX's, prints its events and writes no metrics file.
+`--log-every`, which only the port's parser has, sets the progress cadence
+of all three.
 
 Weights: `--checkpoint-dir` (an upstream DiT checkpoint dir), or `--pick
 NAME` to find one by (fuzzy) name under `--checkpoint-root` (default
 ./checkpoints, training/discovery.py), and `--vae-dir` for the VAE; without
 them, seeded random weights.
-
-Not ported yet: the `dataset`, `estimate` and `full` subcommands.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 import time
 from typing import Optional
@@ -167,6 +178,89 @@ def cmd_fixed(args) -> int:
     return _run_adapter_training(args, "continuous")
 
 
+def cmd_estimate(args) -> int:
+    from acestep_torch.training.data import PreprocessedDataset, make_batches
+    from acestep_torch.training.presets import estimate_gradient_sensitivity
+
+    handler = _build_handler(args)
+    dataset = PreprocessedDataset(args.tensor_dir, seed=args.seed)
+    batches = make_batches(dataset.train_files, args.batch_size,
+                           latent_dim=handler.cfg.audio_acoustic_hidden_dim,
+                           seed=args.seed)
+    ranked = estimate_gradient_sensitivity(handler.model, handler.cfg,
+                                           batches,
+                                           num_batches=args.num_batches,
+                                           seed=args.seed)
+    print(f"{'target':<24} sensitivity")
+    for name, score in ranked:
+        print(f"{name:<24} {score:.6f}")
+    top = [name for name, _ in ranked[: args.top_k]]
+    print(f"\nsuggested LoRA targets (top {args.top_k}): {', '.join(top)}")
+    return 0
+
+
+def _resume_step(resume_from: str):
+    """--resume-from of `full`: 'latest' (None) or a step number, also as
+    checkpoint_<step>."""
+    if resume_from == "latest":
+        return None
+    try:
+        return int(resume_from.rsplit("_", 1)[-1])
+    except ValueError:
+        raise SystemExit(
+            "full: --resume-from must be 'latest' or a step number "
+            "(checkpoints live under --output-dir/checkpoints)") from None
+
+
+def cmd_full(args) -> int:
+    from acestep_torch.training.data import PreprocessedDataset, make_batches
+    from acestep_torch.training.trainer_full import (FullTrainer,
+                                                     FullTrainingConfig)
+
+    handler = _build_handler(args)
+    tcfg = FullTrainingConfig(
+        learning_rate=args.learning_rate or 1e-4,
+        max_steps=args.max_steps or 10_000,
+        checkpoint_every=args.checkpoint_every or 1000,
+        output_dir=args.output_dir, seed=args.seed,
+        mesh_dp=args.mesh_dp, mesh_tp=args.mesh_tp)
+    if args.log_every:
+        tcfg.log_every = args.log_every
+    dataset = PreprocessedDataset(args.tensor_dir,
+                                  val_fraction=args.val_fraction,
+                                  seed=args.seed)
+    batches = make_batches(dataset.train_files, args.batch_size or 1,
+                           latent_dim=handler.cfg.audio_acoustic_hidden_dim,
+                           seed=args.seed)
+    trainer = FullTrainer(handler.model, handler.cfg, tcfg)
+    if args.resume_from:
+        # the full trainer resumes from its own output dir's checkpoints:
+        # 'latest' or a step number, not a foreign path
+        if not trainer.restore(_resume_step(args.resume_from)):
+            raise SystemExit(
+                f"full: no checkpoint to resume in {args.output_dir}")
+    for _step, _loss, message in trainer.train(batches):
+        print(message, flush=True)
+    return 0
+
+
+def cmd_dataset(args) -> int:
+    from acestep_torch.training.dataset_builder import DatasetBuildPipeline
+
+    handler = _build_handler(args)
+    llm = None
+    if args.label:
+        from acestep_torch.llm.handler import LLMHandler
+
+        llm = LLMHandler(dtype=handler.dtype, device=args.device)
+        llm.initialize(seed=args.seed)
+    pipeline = DatasetBuildPipeline(args.audio_dir, args.out_dir, handler,
+                                    llm, val_fraction=args.val_fraction)
+    result = pipeline.build()
+    print(json.dumps(result, indent=2, default=str))
+    return 0
+
+
 def cmd_preprocess(args) -> int:
     from acestep_torch.training.preprocess import preprocess_audio_files
 
@@ -201,11 +295,39 @@ def build_parser() -> argparse.ArgumentParser:
     _add_train_common(p)
     p.set_defaults(fn=cmd_fixed)
 
+    p = sub.add_parser("estimate", help="rank decoder projections by "
+                       "gradient sensitivity on your dataset")
+    _add_common(p)
+    p.add_argument("--tensor-dir", required=True)
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--num-batches", type=int, default=4)
+    p.add_argument("--top-k", type=int, default=4)
+    p.set_defaults(fn=cmd_estimate)
+
+    p = sub.add_parser("full", help="full-parameter trainer (checkpoints "
+                       "under --output-dir/checkpoints)")
+    _add_train_common(p)
+    p.add_argument("--mesh-dp", type=int, default=1,
+                   help="data-parallel mesh axis (above 1 raises: "
+                        "multi-device training is not ported yet)")
+    p.add_argument("--mesh-tp", type=int, default=1,
+                   help="tensor-parallel mesh axis (above 1 raises)")
+    p.set_defaults(fn=cmd_full)
+
     p = sub.add_parser("preprocess", help="manifest -> tensor dir")
     _add_common(p)
     p.add_argument("--manifest", required=True, help="dataset.json path")
     p.add_argument("--out-dir", required=True)
     p.set_defaults(fn=cmd_preprocess)
+
+    p = sub.add_parser("dataset", help="audio dir -> staged dataset build")
+    _add_common(p)
+    p.add_argument("--audio-dir", required=True)
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--label", action="store_true",
+                   help="auto-caption unlabeled audio with the planner LM")
+    p.add_argument("--val-fraction", type=float, default=0.0)
+    p.set_defaults(fn=cmd_dataset)
 
     p = sub.add_parser("presets", help="list named training presets")
     p.set_defaults(fn=cmd_presets)

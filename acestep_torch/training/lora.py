@@ -10,7 +10,7 @@ Only the adapter factors train. Each step merges them into the frozen base
 weights (`lora/adapters.merge_weights`, in the base weights' dtype), runs
 the loss with the merged weights in place (`call_with_weights`) and
 back-propagates into the factors; `torch.optim.AdamW` after
-`clip_grad_norm_` is the counterpart of optax's
+`training/step.clip_by_global_norm_` is the counterpart of optax's
 `chain(clip_by_global_norm, adamw)`. Batches are cast to the base weights'
 dtype: on the card the base is bf16, the dtype the attention kernels take,
 and the adapters and their optimizer state stay fp32.
@@ -33,6 +33,7 @@ from acestep_torch.lora.adapters import (LORA_TARGETS, call_with_weights,
 from acestep_torch.lora.manager import load_adapter_file, save_adapter
 from acestep_torch.models.dit import training_loss
 from acestep_torch.models.sampler import build_turbo_schedule
+from acestep_torch.training.step import clip_by_global_norm_, to_model
 
 
 @dataclasses.dataclass
@@ -98,7 +99,8 @@ def make_lora_train_step(model, cfg: DiTConfig, meta: dict,
 
         loss = call_with_weights(model, merged, run)
         if grad_clip is not None:
-            torch.nn.utils.clip_grad_norm_(_leaves(weights), grad_clip)
+            clip_by_global_norm_([x.grad for x in _leaves(weights)
+                                  if x.grad is not None], grad_clip)
         optimizer.step()
         return loss
 
@@ -125,8 +127,7 @@ class LoRATrainer:
         self.tcfg = tcfg or LoRATrainingConfig()
         # a quantized base trains against its dequantized weights
         self.base_weights = base_weights
-        first = next(model.parameters())
-        self.device, self.dtype = first.device, first.dtype
+        self.device = next(model.parameters()).device
 
     # -- checkpointing ------------------------------------------------------
 
@@ -201,13 +202,6 @@ class LoRATrainer:
             start = json.load(f)["step"]
         return weights, optimizer, start
 
-    def _to_device(self, batch: Dict[str, np.ndarray]):
-        out = {}
-        for k, v in batch.items():
-            t = torch.as_tensor(np.asarray(v), device=self.device)
-            out[k] = t.to(self.dtype) if t.is_floating_point() else t
-        return out
-
     # -- training -----------------------------------------------------------
 
     def train(self, batches: Iterator[Dict[str, np.ndarray]]
@@ -229,7 +223,7 @@ class LoRATrainer:
         for batch in batches:
             if step >= tcfg.max_steps:
                 break
-            loss = step_fn(weights, self._to_device(batch), generator=gen)
+            loss = step_fn(weights, to_model(batch, self.model), generator=gen)
             step += 1
             if step % tcfg.log_every == 0 or step == tcfg.max_steps:
                 loss_f = float(loss)

@@ -34,19 +34,35 @@ def load_manifest(path: str) -> List[Dict[str, Any]]:
     return data
 
 
-def preprocess_samples(handler, samples: List[Dict[str, Any]],
-                       out_dir: str) -> Iterator[str]:
-    """Load, VAE-encode (at most MAX_FRAMES_DEFAULT latent frames kept) and
-    text-embed every sample; yields the written file paths
-    (`sample_<index>.npz`).
+def preprocess_samples(handler, samples: List[Dict[str, Any]], out_dir: str,
+                       *, max_frames: int = MAX_FRAMES_DEFAULT,
+                       skip_existing: bool = False) -> Iterator[str]:
+    """VAE-encode (at most `max_frames` latent frames kept) and text-embed
+    every sample; yields the written file paths.
 
     `handler` is an initialized AceStepHandler (provides encode_audio and
-    text_embedder)."""
+    text_embedder). A sample carrying precomputed `latents` (or a
+    `latents_path` .npy) skips the VAE encode: the staged dataset builder
+    reuses its encode stage's latents. `audio` (samples, ch) stands in for
+    `audio_path`. `filename` overrides the index-based name
+    (`sample_<index>.npz`); with `skip_existing` a file already written is
+    yielded again, not rebuilt."""
     os.makedirs(out_dir, exist_ok=True)
     for i, sample in enumerate(samples):
-        path = os.path.join(out_dir, f"sample_{i:05d}.npz")
-        audio = load_audio(sample["audio_path"])
-        latents = handler.encode_audio(audio)[:MAX_FRAMES_DEFAULT]
+        path = os.path.join(out_dir, sample.get("filename",
+                                                f"sample_{i:05d}.npz"))
+        if skip_existing and os.path.exists(path):
+            yield path
+            continue
+        latents = sample.get("latents")
+        if latents is None and sample.get("latents_path"):
+            latents = np.load(sample["latents_path"])
+        if latents is None:
+            audio = sample.get("audio")
+            if audio is None:
+                audio = load_audio(sample["audio_path"])
+            latents = handler.encode_audio(np.asarray(audio))
+        latents = np.asarray(latents)[:max_frames]
 
         caption = sample.get("caption", "")
         lyrics = sample.get("lyrics", "")
@@ -72,8 +88,8 @@ def preprocess_samples(handler, samples: List[Dict[str, Any]],
         yield path
 
 
-def preprocess_audio_files(handler, manifest_path: str,
-                           out_dir: str) -> List[str]:
+def preprocess_audio_files(handler, manifest_path: str, out_dir: str,
+                           **kwargs) -> List[str]:
     """Manifest file -> tensor dir. Returns written paths."""
     return list(preprocess_samples(handler, load_manifest(manifest_path),
-                                   out_dir))
+                                   out_dir, **kwargs))

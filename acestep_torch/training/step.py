@@ -4,15 +4,17 @@ Port of `acestep_tpu/training/step.py`: condition encode, timestep draw,
 interpolation, the DiT forward (each layer checkpointed), the MSE, the
 backward and the optimizer update. The optimizer is the caller's
 `torch.optim` optimizer over the parameters that require gradients;
-`grad_clip` clips their global norm first (optax's
-`clip_by_global_norm`). The orbax-checkpointed `FullTrainer` over a dp x tp
-mesh is not ported yet.
+`grad_clip` clips their global norm first, as optax's
+`clip_by_global_norm` does (`clip_by_global_norm_`). A parameter the loss
+does not reach gets a zero gradient, as under `jax.grad`, so AdamW decays
+it too. `training/trainer_full.py` drives this step.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from acestep_torch.config import DiTConfig
@@ -30,12 +32,40 @@ def make_train_step(model, cfg: DiTConfig, optimizer: torch.optim.Optimizer,
         loss = training_loss(model, cfg, generator=generator, **draws,
                              **batch)
         loss.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if grad_clip is not None:
-            torch.nn.utils.clip_grad_norm_(params, grad_clip)
+            clip_by_global_norm_([p.grad for p in params], grad_clip)
         optimizer.step()
         return loss.detach()
 
     return step
+
+
+def clip_by_global_norm_(grads, max_norm: float) -> None:
+    """optax.clip_by_global_norm, in place: every gradient is scaled by
+    max_norm / norm unless the global norm is below max_norm
+    (`torch.nn.utils.clip_grad_norm_` scales by max_norm / (norm + 1e-6)
+    instead). The norm is summed in fp32."""
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
+
+
+def to_model(arrays: dict, model) -> dict:
+    """numpy arrays or tensors -> tensors on `model`'s device, floating
+    ones cast to its dtype (on the card bf16, the kernels' dtype)."""
+    first = next(model.parameters())
+    out = {}
+    for k, v in arrays.items():
+        x = torch.as_tensor(v if isinstance(v, torch.Tensor)
+                            else np.asarray(v), device=first.device)
+        out[k] = x.to(first.dtype) if x.is_floating_point() else x
+    return out
 
 
 def tiny_batch(cfg: DiTConfig, generator: torch.Generator, *,

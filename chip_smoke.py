@@ -27,7 +27,12 @@ so the exit code is non-zero and no result line is printed:
    seeded song, and a base model's 4 guided (APG) steps;
    then one LoRA step of a small model, card against CPU: the loss and
    every target's adapter gradient, and a control step with the attention
-   backward's delta left out that the gradient limit must catch.
+   backward's delta left out that the gradient limit must catch; then
+   `full_train_reference`: 3 full-parameter `FullTrainer` steps of the
+   same small model, card against CPU: the first step's loss and
+   gradients (per LoRA target and over every parameter; the same delta
+   control), and the 3 steps' change of every parameter entry, with a
+   control run (the warmup left out) the update limit must catch.
 5. end to end: full-width turbo text2music (DiTConfig.turbo(), VAEConfig(),
    bf16, seeded random weights) through acestep_torch.inference.
    generate_music, three requests; the kernels' launch counters show the
@@ -91,20 +96,34 @@ Between phases 5 and 6, on phase 5's full-width handler:
   with the default format (flac) decoded back equal to the int16 samples
   written, `audio_conversion_time` beside a wav save's. The CLI's
   `--once --no-think` as a subprocess on the card, its flac decoded.
+- dataset (after serving, the planner still attached, on the same
+  handler): two seeded 60 s songs through POST /v1/dataset/build (K4 three
+  times an encode, the planner's `understand` per song) polled through
+  /v1/dataset/status, then the session routes scan -> auto_label_async
+  -> save -> preprocess_async, then 1 LoRA step at full width over
+  /v1/training/start on the built tensors; stage seconds per song.
 - lrc: a turbo 60 s request with lyrics and want_lrc=True at 24 layers
   (DEFAULT_CAPTURE: the capture pass runs 7 layers through K1): LRC
   lines, the alignment score inside (0, 1), `auto_lrc_time`; the tiny
   capture pass card against CPU; the PMI reward score of the quant
   phase's codes under a 2-layer LM, card against CPU.
 
-Phase 6 ends with `rest_training`: `/v1/training/start` for 2 LoRA steps
-at full width on the tensors phase 6 preprocessed (K1, K2, K3 counted),
-`/v1/training/status` polled until done, the written adapter loaded.
+Phase 6 goes on with `rest_training`: `/v1/training/start` for 2 LoRA
+steps at full width on the tensors phase 6 preprocessed (K1, K2, K3
+counted), `/v1/training/status` polled until done, the written adapter
+loaded; `full_training`: the CLI's `full` at full width on the same
+tensors, 4 steps with a checkpoint every 2, the latest checkpoint
+restored bit-equal in this process, a resume from `latest` to step 6
+(seconds per step, launches per step, peak memory, checkpoint bytes, save
+and restore seconds; the output deleted after); and `estimate`: the CLI's
+`estimate --num-batches 2` (wall, ranked targets) and a small model's
+estimate, card against CPU.
 
 The launch counts of the kernel table are those of phases 5 and 6 with
-their `tasks`, `adapter` and `rest_training` parts, the checkpoint render,
-the measured thinking requests, the serving phase, the quant phase's
-measured renders and the lrc request. The last two lines are the kernel
+their `tasks`, `adapter`, `rest_training`, `full_training` and `estimate`
+parts, the checkpoint render, the measured thinking requests, the serving
+and dataset phases, the quant phase's measured renders and the lrc
+request. The last two lines are the kernel
 table and {"ok": true, "device": ...}.
 """
 
@@ -156,6 +175,15 @@ TOL_REFERENCE = 5e-2
 # step with the attention backward's delta left out.
 TOL_TRAIN_LOSS = 1e-3
 TOL_TRAIN_GRAD = 5e-2
+# Three full-parameter steps of a 2-layer model, the same card-vs-CPU pair
+# (the first step's loss and gradients under the two limits above): an Adam
+# step moves each entry by about lr, so an entry whose gradient is near 0
+# can move the other way on a bf16 difference, and bf16 storage rounds the
+# change of weights near 1. The share of parameter entries whose 3-step
+# change differs by more than half the summed lr is held under this limit,
+# which sits between the reading and a control run with the warmup left
+# out (the first update at the peak lr), which the check must reject.
+TOL_FULL_UPDATE = 2e-2
 
 # seconds of each seeded training song (the 120 s, 3000-frame sample cap)
 TRAIN_SONG_SECONDS = 120.0
@@ -282,16 +310,20 @@ def bound(flops: float, nbytes: float):
                                        else "bytes")
 
 
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    card = smi.strip().splitlines()[0]
+    card = _card()
     print(card, flush=True)
     emit(phase="device", card=card, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
@@ -724,6 +756,133 @@ def phase_train_reference():
          loss_rel_err=loss_err, grad_rel_err=grad_err,
          control_grad_rel_err=control_err, launches=ran,
          seconds=time.time() - t0)
+
+
+def _full_runs(model, cfg, batches, draws, lr, first_lr=None):
+    """3 FullTrainer steps (warmup 1, so the first update has lr 0): each
+    step's loss and clipped gradients (fp32, on the CPU), the change of
+    every parameter (fp32) and the schedule's lrs. `first_lr` replaces the
+    first update's lr (the control)."""
+    import torch
+
+    from acestep_torch.training.trainer_full import (FullTrainer,
+                                                     FullTrainingConfig)
+
+    init = {n: p.detach().float().cpu().clone()
+            for n, p in model.named_parameters()}
+    trainer = FullTrainer(model, cfg, FullTrainingConfig(
+        learning_rate=lr, warmup_steps=1, max_steps=3, checkpoint_every=0,
+        log_every=1))
+    schedule = trainer.lr
+    if first_lr is not None:
+        trainer.lr = lambda c: first_lr if c == 0 else schedule(c)
+    steps = []
+    for _step, loss, _msg in trainer.train(iter(batches), draws=iter(draws)):
+        steps.append((loss, {n: p.grad.float().cpu().clone()
+                             for n, p in model.named_parameters()}))
+    change = {n: p.detach().float().cpu() - init[n]
+              for n, p in model.named_parameters()}
+    return steps, change, [schedule(c) for c in range(3)]
+
+
+def phase_full_train_reference():
+    """3 full-parameter steps of a 2-layer model (head_dim 128), bf16 on
+    the card through K1/K2/K3 against fp32 on the CPU, same weights,
+    batches and draws, lr 1e-2 after a 1-step warmup (updates well above
+    bf16's spacing at the weights' size). Checks: the first step's loss;
+    its gradients, per LoRA target (the decoder's projections over the
+    layers) and over every parameter, against TOL_TRAIN_GRAD, with a
+    control step (the attention backward's delta left out) that must
+    exceed it; and the 3 steps' change of every parameter entry: the share
+    of entries whose change differs by more than half the summed lr
+    (an Adam step moves an entry by about lr) must stay under
+    TOL_FULL_UPDATE, with a control run (the warmup left out: the first
+    update at the peak lr) that must exceed it."""
+    import torch
+
+    from acestep_torch.config import DiTConfig
+    from acestep_torch.lora.adapters import LORA_TARGETS
+    from acestep_torch.models.dit import build_dit, init_dit_params
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.training.step import tiny_batch
+
+    t0 = time.time()
+    lr = 1e-2
+    cfg = DiTConfig.tiny(head_dim=128, fsq_dim=64)
+
+    def gpu_model():
+        return init_dit_params(cfg, torch.Generator("cuda").manual_seed(0),
+                               dtype=torch.bfloat16)
+
+    cpu_model = build_dit(cfg, "cpu", torch.float32)
+    cpu_model.load_state_dict(gpu_model().state_dict())
+    g = torch.Generator().manual_seed(1)
+    batches, draws = [], []
+    for i in range(3):
+        batch = tiny_batch(cfg, g, batch=2, frames=200)
+        batches.append(batch)
+        draws.append(dict(keep=torch.tensor([True, i % 2 == 0]),
+                          noise=torch.randn(batch["hidden_states"].shape,
+                                            generator=g),
+                          t=torch.rand(2, generator=g)))
+
+    before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    gpu_steps, gpu_change, lrs = _full_runs(gpu_model(), cfg, batches,
+                                            draws, lr)
+    torch.cuda.synchronize()
+    ran = [a - b for a, b in zip((fa.launches, fa.launches_bwd_dq,
+                                  fa.launches_bwd_dkv), before)]
+    cpu_steps, cpu_change, _ = _full_runs(cpu_model, cfg, batches, draws, lr)
+    bwd = fa.flash_attention_bwd
+
+    def without_delta(q, k, v, out, lse, dout, window=None):
+        return bwd(q, k, v, torch.zeros_like(out), lse, dout, window)
+
+    with mock.patch.object(fa, "flash_attention_bwd", without_delta):
+        control_steps, _, _ = _full_runs(gpu_model(), cfg, batches[:1],
+                                         draws[:1], lr)
+    _, control_change, _ = _full_runs(gpu_model(), cfg, batches, draws, lr,
+                                      first_lr=lr)
+
+    def grad_errs(grads):
+        want = cpu_steps[0][1]
+        groups = {".".join(t): [f"decoder.layers.{i}.{'.'.join(t)}.weight"
+                                for i in range(cfg.num_hidden_layers)]
+                  for t in LORA_TARGETS}
+        groups["all"] = list(want)
+
+        def rel(names):
+            num = sum(float((grads[n] - want[n]).norm() ** 2) for n in names)
+            return (num / sum(float(want[n].norm() ** 2)
+                              for n in names)) ** 0.5
+        return {name: rel(names) for name, names in groups.items()}
+
+    def off_share(change):
+        limit = 0.5 * sum(lrs)
+        off = sum(int(((change[n] - d).abs() > limit).sum())
+                  for n, d in cpu_change.items())
+        return off / sum(d.numel() for d in cpu_change.values())
+
+    loss_err = abs(gpu_steps[0][0] - cpu_steps[0][0]) / abs(cpu_steps[0][0])
+    grad_err, control_err = grad_errs(gpu_steps[0][1]), \
+        grad_errs(control_steps[0][1])
+    share, control_share = off_share(gpu_change), off_share(control_change)
+    worst, control = max(grad_err.values()), max(control_err.values())
+    if not (loss_err < TOL_TRAIN_LOSS and worst < TOL_TRAIN_GRAD < control
+            and share < TOL_FULL_UPDATE < control_share
+            and all(r >= 3 * cfg.num_hidden_layers for r in ran)):
+        raise AssertionError(
+            f"full step card vs CPU: loss rel {loss_err:.3e} (tol "
+            f"{TOL_TRAIN_LOSS}); worst gradient error {worst:.3e}, control "
+            f"{control:.3e} (want error < {TOL_TRAIN_GRAD} < control); "
+            f"update share off {share:.3e}, control {control_share:.3e} "
+            f"(want share < {TOL_FULL_UPDATE} < control); K1/K2/K3 {ran}")
+    emit(phase="full_train_reference", lrs=lrs,
+         gpu_losses=[x[0] for x in gpu_steps],
+         cpu_losses=[x[0] for x in cpu_steps], loss_rel_err=loss_err,
+         grad_rel_err=grad_err, control_grad_rel_err=control_err,
+         update_share_off=share, control_update_share_off=control_share,
+         launches=ran, seconds=time.time() - t0)
 
 
 def phase_end_to_end():
@@ -1818,6 +1977,205 @@ def phase_serving(turbo, llm):
     return launches
 
 
+DATASET_SONG_SECONDS = 60.0
+
+
+def _poll_data(port: int, route: str, timeout: float = 600.0) -> dict:
+    """Poll a GET route every 0.1 s until its data's status ends."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        _, out, _ = _rest(port, "GET", route)
+        if out["data"]["status"] in ("completed", "failed", "stopped"):
+            return out["data"]
+        time.sleep(0.1)
+    raise AssertionError(f"{route} did not finish in {timeout} s")
+
+
+def phase_dataset(turbo, llm):
+    """The dataset build and the dataset session over REST, on phase 5's
+    turbo handler with the planner phase's 4B planner attached (the
+    server's own AppState wiring): two seeded 60 s wav songs; POST
+    /v1/dataset/build polled through /v1/dataset/status (scan -> encode,
+    K4 three launches an encode -> label, the planner's `understand` on
+    each song's codes -> manifest -> tensors from the cached latents); the
+    session routes scan -> auto_label_async (polled) -> save ->
+    preprocess_async (polled), each of the session's stages encoding the
+    songs again (K4); then 1 LoRA step at full width over
+    /v1/training/start on the built tensors (the output is training
+    input), its adapter unloaded after. Seeded weights may give no
+    caption: the build then falls back to the filename's, as JAX's does;
+    the check is that every stage ran and wrote its files. Reports each
+    stage's seconds per song, K4 launches and the planner's calls."""
+    import numpy as np
+    import torch
+
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+    from acestep_torch.serving import server as srv
+    from acestep_torch.training import dataset_builder
+    from acestep_torch.utils.audio import save_wav
+
+    t_phase = time.time()
+    n_songs, frames = 2, int(DATASET_SONG_SECONDS * 25)
+    stage_s = {}
+
+    def timed(name):
+        real = getattr(dataset_builder.DatasetBuildPipeline, name)
+
+        def run(self, *args, **kwargs):
+            t0 = time.time()
+            out = real(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            stage_s[name] = time.time() - t0
+            return out
+        return run
+
+    understood = []
+    real_understand = llm.understand
+
+    def understand(codes, *args, **kwargs):
+        t0 = time.time()
+        out = real_understand(codes, *args, **kwargs)
+        understood.append({"s": time.time() - t0,
+                           "codes": codes.count("<|audio_code_"),
+                           "caption": bool(out.get("caption"))})
+        return out
+
+    os.makedirs("build", exist_ok=True)
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    sc.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dataset_",
+                                     dir=os.path.abspath("build")) as work, \
+            mock.patch.object(llm, "understand", understand), \
+            mock.patch.multiple(dataset_builder.DatasetBuildPipeline,
+                                stage_encode=timed("stage_encode"),
+                                stage_label=timed("stage_label"),
+                                stage_tensors=timed("stage_tensors")):
+        audio_dir = os.path.join(work, "songs")
+        os.makedirs(audio_dir)
+        for i in range(n_songs):
+            save_wav(os.path.join(audio_dir, f"seeded_song_{i}.wav"),
+                     _song(DATASET_SONG_SECONDS, 300 + i))
+        state = srv.AppState({SERVED_MODEL: turbo}, llm,
+                             output_dir=os.path.join(work, "outputs"),
+                             persist_dir=os.path.join(work, "persist"))
+        server, port = _serve(state)
+        try:
+            # -- the staged build
+            ds = os.path.join(work, "ds")
+            t0 = time.time()
+            status, out, _ = _rest(port, "POST", "/v1/dataset/build",
+                                   {"audio_dir": audio_dir, "out_dir": ds})
+            if status != 200:
+                raise AssertionError(f"/v1/dataset/build {status}: {out}")
+            built = _poll_data(port, "/v1/dataset/status")
+            build_wall = time.time() - t0
+            build_k4, build_calls = sc.launches, len(understood)
+            if built["status"] != "completed" or \
+                    built["result"]["num_samples"] != n_songs or \
+                    built["progress"]["encoded"] != n_songs or \
+                    built["progress"]["tensors"] != n_songs:
+                raise AssertionError(f"dataset build: {built}")
+            with open(os.path.join(ds, "dataset.json")) as f:
+                manifest = json.load(f)
+            for name in os.listdir(os.path.join(ds, "latents")):
+                lat = np.load(os.path.join(ds, "latents", name))
+                if lat.shape != (frames, 64) or not np.isfinite(lat).all():
+                    raise AssertionError(f"latents {name}: {lat.shape}")
+            if len(manifest) != n_songs or not all(
+                    e.get("caption") for e in manifest):
+                raise AssertionError(f"manifest: {manifest}")
+
+            # -- the session: scan -> auto_label -> save -> preprocess
+            k4 = sc.launches
+            t0 = time.time()
+            status, out, _ = _rest(port, "POST", "/v1/dataset/scan", {
+                "audio_dir": audio_dir, "dataset_name": "chip_smoke_set"})
+            if status != 200 or out["data"]["num_samples"] != n_songs:
+                raise AssertionError(f"/v1/dataset/scan {status}: {out}")
+            status, out, _ = _rest(port, "POST",
+                                   "/v1/dataset/auto_label_async", {})
+            labeled = _poll_data(port, "/v1/dataset/auto_label_status/"
+                                 + out["data"]["task_id"])
+            label_wall = time.time() - t0
+            session_label_k4 = sc.launches - k4
+            session_path = os.path.join(work, "session.json")
+            status, saved, _ = _rest(port, "POST", "/v1/dataset/save",
+                                     {"save_path": session_path})
+            k4 = sc.launches
+            t0 = time.time()
+            session_tensors = os.path.join(work, "session_tensors")
+            status, out, _ = _rest(port, "POST",
+                                   "/v1/dataset/preprocess_async",
+                                   {"output_dir": session_tensors})
+            preprocessed = _poll_data(port, "/v1/dataset/preprocess_status/"
+                                      + out["data"]["task_id"])
+            preprocess_wall = time.time() - t0
+            session_k4 = sc.launches - k4
+            with open(session_path) as f:
+                session = json.load(f)
+            if labeled["status"] != "completed" or \
+                    labeled["result"]["labeled_count"] != n_songs or \
+                    status != 200 or \
+                    preprocessed["status"] != "completed" or \
+                    preprocessed["result"]["num_samples"] != n_songs or \
+                    len(session["samples"]) != n_songs or \
+                    len([f for f in os.listdir(session_tensors)
+                         if f.endswith(".npz")]) != n_songs:
+                raise AssertionError(f"dataset session: label {labeled}, "
+                                     f"save {saved}, preprocess "
+                                     f"{preprocessed}")
+
+            # -- the built tensors are training input: 1 LoRA step
+            k1 = fa.launches
+            t0 = time.time()
+            status, out, _ = _rest(port, "POST", "/v1/training/start", {
+                "dataset_dir": os.path.join(ds, "tensors"), "config": {
+                    "max_steps": 1, "rank": 16, "batch_size": 1,
+                    "checkpoint_every": 0, "log_every": 1,
+                    "output_dir": os.path.join(work, "lora"),
+                    "adapter_name": "dataset_lora"}})
+            if status != 200:
+                raise AssertionError(f"/v1/training/start {status}: {out}")
+            trained = _poll_data(port, "/v1/training/status")
+            lora_wall = time.time() - t0
+            lora_k1 = fa.launches - k1
+        finally:
+            state.shutdown()
+            server.shutdown()
+            server.server_close()
+        turbo.lora.unload()
+        if trained["status"] != "completed" or trained["step"] != 1 or \
+                not np.isfinite(trained["loss"]) or \
+                turbo.lora.status()["active_adapter"] is not None:
+            raise AssertionError(f"LoRA step on the built tensors: "
+                                 f"{trained}, {turbo.lora.status()}")
+    launches = {"K1": fa.launches, "K2": fa.launches_bwd_dq,
+                "K3": fa.launches_bwd_dkv, "K4": sc.launches}
+    layers = turbo.cfg.num_hidden_layers
+    # three encodes a song (the build's, the session's label and
+    # preprocess), three C <= 256 stacks each
+    need = {"K4": 3 * 3 * n_songs, "K1": 2 * layers, "K2": layers,
+            "K3": layers}
+    short = {k: (launches[k], n) for k, n in need.items() if launches[k] < n}
+    if short or build_calls != n_songs or len(understood) != 2 * n_songs:
+        raise AssertionError(f"dataset launches (got, need): {short}; "
+                             f"understand calls {len(understood)}")
+    emit(phase="dataset", card=_card(), songs=n_songs,
+         song_seconds=DATASET_SONG_SECONDS, build_wall_s=build_wall,
+         stage_s=stage_s,
+         stage_s_per_song={k: v / n_songs for k, v in stage_s.items()},
+         build_k4=build_k4, k4_per_encode=build_k4 / n_songs,
+         understand=understood, understand_calls=len(understood),
+         build_captions=[e["caption"] for e in manifest],
+         session_label_wall_s=label_wall, session_label_k4=session_label_k4,
+         session_preprocess_wall_s=preprocess_wall,
+         session_preprocess_k4=session_k4, lora_step_wall_s=lora_wall,
+         lora_step_loss=trained["loss"], lora_step_k1=lora_k1,
+         launches=launches, need=need, seconds=time.time() - t_phase)
+    return launches
+
+
 def phase_rest_training(tensors: str, work: str):
     """LoRA training over REST: `/v1/training/start` for 2 steps at full
     width (DiTConfig.turbo(), rank 16, batch 1) on the tensors the
@@ -2233,15 +2591,285 @@ def phase_training(k4_per_song: int):
     """preprocess -> vanilla (8 steps) -> resume from checkpoint_4, through
     the port's training CLI at full width, in a temporary directory under
     ./build (inside the server's safe root for user paths); then the
-    trained adapter at inference (`phase_adapter`) and LoRA training over
-    REST on the same tensors (`phase_rest_training`)."""
+    trained adapter at inference (`phase_adapter`), LoRA training over
+    REST on the same tensors (`phase_rest_training`), full-parameter
+    training (`phase_full_training`) and the gradient-sensitivity estimate
+    (`phase_estimate`) on them."""
     os.makedirs("build", exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
                                      dir=os.path.abspath("build")) as work:
         training = _training_in(work, k4_per_song)
         adapter = phase_adapter(os.path.join(work, "lora", "adapter.npz"))
         rest = phase_rest_training(os.path.join(work, "tensors"), work)
-    return training, adapter, rest
+        full = phase_full_training(os.path.join(work, "tensors"), work)
+        estimate = phase_estimate(os.path.join(work, "tensors"))
+    return training, adapter, rest, full, estimate
+
+
+def _state_digests(model, optimizer):
+    """An order-sensitive integer digest of each tensor of the model's and
+    the optimizer's state (the weighted sum of its bits, on its device),
+    and the optimizer's param groups: equal state gives equal digests, a
+    stale or shuffled tensor almost surely another."""
+    import torch
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+    def digest(t):
+        flat = t.detach().reshape(-1)
+        x = flat.view(ints[flat.element_size()]).to(torch.int64)
+        w = torch.arange(flat.numel(), device=flat.device) % 65521 + 1
+        return int((x * w).sum())
+
+    opt = optimizer.state_dict()
+    return {"model": {k: digest(v) for k, v in model.state_dict().items()},
+            "optimizer": {(i, k): digest(v) for i, st in opt["state"].items()
+                          for k, v in st.items()},
+            "param_groups": opt["param_groups"]}
+
+
+def phase_full_training(tensors: str, work: str):
+    """The training CLI's `full` at full width (DiTConfig.turbo(), every
+    parameter in bf16, AdamW with the default warmup) on phase 6's two
+    120 s tensor files: 4 steps with a checkpoint every 2, then the latest
+    checkpoint restored in this process into an uninitialised model and
+    its optimizer, whose state must be bit-equal (by `_state_digests`) to
+    the trainer's live state when it saved; checkpoint 2 deleted (at most
+    2 checkpoints, ~14 GB each, on disk), a resume from `latest` to step
+    6, and the output directory deleted. The CLI runs as JAX's does; this
+    phase times it from outside, through the trainer's step function and
+    `save`: seconds per step (the device's, synchronised on both sides),
+    K1/K2/K3 launches per step, peak memory (the digests' own excluded),
+    checkpoint save seconds, restore seconds and bytes."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from acestep_torch.config import DiTConfig
+    from acestep_torch.models.dit import build_dit
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+    from acestep_torch.training import cli, trainer_full
+    from acestep_torch.training.trainer_full import (FullTrainer,
+                                                     FullTrainingConfig)
+
+    t_phase = time.time()
+    out = os.path.join(work, "full")
+    ckpts = os.path.join(out, "checkpoints")
+    common = ["--tensor-dir", tensors, "--output-dir", out,
+              "--checkpoint-every", "2", "--seed", "0"]
+    step_s, losses, peaks, saves = [], [], [], {}
+    real_make, real_save = trainer_full.make_train_step, FullTrainer.save
+
+    def timed_make(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            loss = step(*a, **kw)
+            torch.cuda.synchronize()
+            step_s.append(time.time() - t0)
+            losses.append(float(loss))
+            return loss
+        return timed
+
+    def timed_save(self):
+        fresh = not os.path.isdir(os.path.join(self.ckpt_root,
+                                               str(self.step)))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        real_save(self)
+        if fresh:
+            seconds = time.time() - t0
+            peaks.append(torch.cuda.max_memory_allocated())
+            saves[self.step] = (seconds, _state_digests(self.model,
+                                                        self.optimizer))
+            torch.cuda.reset_peak_memory_stats()
+
+    def run(*extra):
+        buf = io.StringIO()
+        t0 = time.time()
+        with mock.patch.object(trainer_full, "make_train_step", timed_make), \
+                mock.patch.object(FullTrainer, "save", timed_save), \
+                contextlib.redirect_stdout(buf):
+            cli.main(["full", *common, *extra])
+        wall = time.time() - t0
+        peaks.append(torch.cuda.max_memory_allocated())
+        gc.collect()
+        torch.cuda.empty_cache()
+        return wall, buf.getvalue().splitlines()
+
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    sc.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    first_wall, printed = run("--max-steps", "4")
+    per_run = {"K1": fa.launches, "K2": fa.launches_bwd_dq,
+               "K3": fa.launches_bwd_dkv}
+    if len(losses) != 4 or sorted(saves) != [2, 4] or \
+            sorted(os.listdir(ckpts)) != ["2", "4"] or \
+            not all(np.isfinite(losses)) or \
+            [line.split(" (")[0] for line in printed if
+             line.startswith("step")] != [f"step 4/4 loss {losses[-1]:.4f}"]:
+        raise AssertionError(f"full: losses {losses}, saves {sorted(saves)},"
+                             f" checkpoints {sorted(os.listdir(ckpts))}, "
+                             f"printed {printed}")
+    path = os.path.join(ckpts, "4")
+    ckpt_bytes = {name: os.path.getsize(os.path.join(path, name))
+                  for name in sorted(os.listdir(path))}
+
+    # the latest checkpoint into an uninitialised model: bit-equal to the
+    # trainer's state when it saved step 4
+    cfg = DiTConfig.turbo()
+    shell = build_dit(cfg, "cuda", torch.bfloat16)
+    trainer = FullTrainer(shell, cfg, FullTrainingConfig(
+        output_dir=out, checkpoint_every=2))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    restored = trainer.restore()
+    torch.cuda.synchronize()
+    restore_s = time.time() - t0
+    got = _state_digests(shell, trainer.optimizer)
+    want = saves[4][1]
+    same_model = got["model"] == want["model"]
+    same_opt = got["optimizer"] == want["optimizer"] and \
+        got["param_groups"] == want["param_groups"] and \
+        len({i for i, _ in got["optimizer"]}) == len(list(shell.parameters()))
+    finite = all(torch.isfinite(p).all() for p in shell.parameters())
+    step_after = trainer.step
+    del trainer, shell
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (restored and step_after == 4 and same_model and same_opt
+            and finite):
+        raise AssertionError(f"full restore: restored {restored}, step "
+                             f"{step_after}, model bit-equal {same_model}, "
+                             f"optimizer bit-equal {same_opt}, finite "
+                             f"{finite}")
+
+    shutil.rmtree(os.path.join(ckpts, "2"))
+    torch.cuda.reset_peak_memory_stats()
+    resume_wall, printed = run("--max-steps", "6", "--resume-from", "latest")
+    if len(losses) != 6 or sorted(saves) != [2, 4, 6] or \
+            sorted(os.listdir(ckpts)) != ["4", "6"] or \
+            not all(np.isfinite(losses)) or \
+            not any(line.startswith("step 6/6") for line in printed):
+        raise AssertionError(f"full resume: losses {losses}, checkpoints "
+                             f"{sorted(os.listdir(ckpts))}, printed "
+                             f"{printed}")
+    shutil.rmtree(out)
+
+    layers = cfg.num_hidden_layers
+    launches = {"K1": fa.launches, "K2": fa.launches_bwd_dq,
+                "K3": fa.launches_bwd_dkv, "K4": sc.launches}
+    need = {"K1": 2 * layers * 6, "K2": layers * 6, "K3": layers * 6}
+    short = {k: (launches[k], n) for k, n in need.items() if launches[k] < n}
+    if short:
+        raise AssertionError(f"full training launches (got, need): {short}")
+    warm = step_s[1:4] + step_s[5:]     # the first step of each run aside
+    emit(phase="full_training", card=_card(), steps=6, losses=losses,
+         s_per_step=step_s, s_per_step_median=statistics.median(warm),
+         launches_per_step={k: v / 4 for k, v in per_run.items()},
+         max_memory_allocated=max(peaks), checkpoint_bytes=ckpt_bytes,
+         checkpoint_total_bytes=sum(ckpt_bytes.values()),
+         checkpoint_save_s=[saves[k][0] for k in sorted(saves)],
+         checkpoint_restore_s=restore_s,
+         first_run_wall_s=first_wall, resume_run_wall_s=resume_wall,
+         restored_bit_equal=True, launches=launches, need=need,
+         seconds=time.time() - t_phase)
+    return launches
+
+
+TOL_ESTIMATE = 5e-2
+
+
+def phase_estimate(tensors: str):
+    """The training CLI's `estimate --num-batches 2` at full width on phase
+    6's tensors: its wall (and the estimate's own seconds, handler set-up
+    aside), the ranked targets, K1/K2/K3 launches. Then a 2-layer model's
+    estimate, bf16 on the card against fp32 on the CPU (same weights,
+    batch and draws): each target's value within TOL_ESTIMATE relative,
+    and the same ranking up to ties inside that limit."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from acestep_torch.config import DiTConfig
+    from acestep_torch.models.dit import build_dit, init_dit_params
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+    from acestep_torch.training import cli, presets
+    from acestep_torch.training.step import tiny_batch
+
+    t_phase = time.time()
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    sc.launches = 0
+    inner = []
+    real = presets.estimate_gradient_sensitivity
+
+    def timed(*args, **kwargs):
+        t0 = time.time()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        inner.append((time.time() - t0, out))
+        return out
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with mock.patch.object(presets, "estimate_gradient_sensitivity", timed), \
+            contextlib.redirect_stdout(buf):
+        cli.main(["estimate", "--tensor-dir", tensors, "--num-batches", "2",
+                  "--seed", "0"])
+    wall = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines = buf.getvalue().strip().splitlines()
+    estimate_s, ranked = inner[0]
+    launches = {"K1": fa.launches, "K2": fa.launches_bwd_dq,
+                "K3": fa.launches_bwd_dkv, "K4": sc.launches}
+    layers = DiTConfig.turbo().num_hidden_layers
+    need = {"K1": 2 * 2 * layers, "K2": 2 * layers, "K3": 2 * layers}
+    values = [v for _, v in ranked]
+    if len(ranked) != 11 or not all(np.isfinite(values)) or \
+            not all(v > 0 for v in values) or \
+            [line.split()[0] for line in lines[1:12]] != \
+            [n for n, _ in ranked] or \
+            not lines[-1].startswith("suggested LoRA targets") or \
+            any(launches[k] < n for k, n in need.items()):
+        raise AssertionError(f"estimate: output {lines}, launches "
+                             f"{launches} (need {need})")
+
+    # the small model, card against CPU
+    cfg = DiTConfig.tiny(head_dim=128, fsq_dim=64)
+    gpu = init_dit_params(cfg, torch.Generator("cuda").manual_seed(0),
+                          dtype=torch.bfloat16)
+    cpu = build_dit(cfg, "cpu", torch.float32)
+    cpu.load_state_dict(gpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    batches = [tiny_batch(cfg, g, batch=2, frames=200) for _ in range(2)]
+    draws = [dict(keep=torch.tensor([True, False]),
+                  noise=torch.randn(b["hidden_states"].shape, generator=g),
+                  t=torch.tensor([0.7, 0.3])) for b in batches]
+    got = real(gpu, cfg, batches, num_batches=2, draws=draws)
+    want = real(cpu, cfg, batches, num_batches=2, draws=draws)
+    got_d = dict(got)
+    errs = {n: abs(got_d[n] - v) / v for n, v in want}
+    same_runs = all({n for n, _ in got[r]} == {n for n, _ in want[r]}
+                    for r in presets.tie_runs(want, TOL_ESTIMATE))
+    if not (max(errs.values()) < TOL_ESTIMATE and same_runs):
+        raise AssertionError(f"estimate card vs CPU: card {got}, CPU "
+                             f"{want}, errors {errs} (tol {TOL_ESTIMATE})")
+    emit(phase="estimate", card=_card(), wall_s=wall,
+         estimate_s=estimate_s, ranked=ranked, suggested=lines[-1],
+         reference={"card": got, "cpu": want, "rel_err": errs,
+                    "ranking_equal_up_to_ties": same_runs},
+         launches=launches, need=need, seconds=time.time() - t_phase)
+    return launches
 
 
 def phase_adapter(path: str):
@@ -2438,12 +3066,14 @@ def main() -> None:
     k1, k4, k2, k3 = phase_kernels()
     phase_reference()
     phase_train_reference()
+    phase_full_train_reference()
     text2music, handler = phase_end_to_end()
     k4_per_song = k4_launches_per_song(handler)
     tasks = phase_tasks(handler, k4_per_song)
     checkpoint = phase_checkpoint(handler)
     planner, llm = phase_planner(handler)
     serving = phase_serving(handler, llm)
+    dataset = phase_dataset(handler, llm)
     del llm
     gc.collect()
     torch.cuda.empty_cache()
@@ -2452,10 +3082,12 @@ def main() -> None:
     del handler
     gc.collect()
     torch.cuda.empty_cache()
-    training, adapter, rest_training = phase_training(k4_per_song)
+    training, adapter, rest_training, full, estimate = \
+        phase_training(k4_per_song)
     launches = {k: text2music[k] + tasks[k] + checkpoint[k] + planner[k]
-                + serving[k] + quant[k] + lrc[k] + training[k] + adapter[k]
-                + rest_training[k] for k in training}
+                + serving[k] + dataset[k] + quant[k] + lrc[k] + training[k]
+                + adapter[k] + rest_training[k] + full[k] + estimate[k]
+                for k in training}
 
     def row(name, source, replaces, cases, rep, n):
         return {"name": name, "route": "cuda", "source": source,

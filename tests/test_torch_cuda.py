@@ -693,3 +693,123 @@ def test_fused_group_launches_k1_as_one_render(cuda_device, tmp_path):
     fused = fa.launches - before
     assert solo.success and all(r.success for r in group)
     assert single == fused == h.cfg.num_hidden_layers * 8
+
+
+# ------------------------------------------------------------------
+# Full-parameter training, the estimate and the dataset build on the card
+# ------------------------------------------------------------------
+
+
+def _train_pair(device):
+    """A 2-layer DiT (head_dim 128, the kernels' width) in bf16 on the
+    card and the same weights in fp32 on the CPU, with one batch and its
+    draws (200 frames: the banded layer's band is narrower)."""
+    from acestep_torch.config import DiTConfig
+    from acestep_torch.models.dit import build_dit, init_dit_params
+    from acestep_torch.training.step import tiny_batch
+
+    cfg = DiTConfig.tiny(head_dim=128, fsq_dim=64)
+    gpu = init_dit_params(cfg, torch.Generator(device).manual_seed(0),
+                          dtype=torch.bfloat16)
+    cpu = build_dit(cfg, "cpu", torch.float32)
+    cpu.load_state_dict(gpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    batch = tiny_batch(cfg, g, batch=2, frames=200)
+    draws = dict(keep=torch.tensor([True, False]),
+                 noise=torch.randn(batch["hidden_states"].shape, generator=g),
+                 t=torch.tensor([0.7, 0.3]))
+    return cfg, gpu, cpu, batch, draws
+
+
+def _global_rel(got, want):
+    num = sum(float((got[n] - w).norm() ** 2) for n, w in want.items())
+    den = sum(float(w.norm() ** 2) for w in want.values())
+    return (num / den) ** 0.5
+
+
+def test_full_trainer_step_card_vs_cpu(cuda_device):
+    """One FullTrainer step (lr 0 at the first update, so the gradients
+    stay to be read) through K1 forward and recompute and K2/K3: every
+    parameter's gradient, over all of them, within 5e-2 of the fp32 CPU
+    step's (chip_smoke's TOL_TRAIN_GRAD); a second step keeps the weights
+    finite."""
+    from acestep_torch.training.trainer_full import (FullTrainer,
+                                                     FullTrainingConfig)
+
+    cfg, gpu, cpu, batch, draws = _train_pair(cuda_device)
+    grads = {}
+    for name, model in (("gpu", gpu), ("cpu", cpu)):
+        t = FullTrainer(model, cfg, FullTrainingConfig(
+            warmup_steps=1, max_steps=2, checkpoint_every=0, log_every=1))
+        before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+        events = t.train(iter([batch, batch]), draws=iter([draws, draws]))
+        loss = next(events)[1]
+        grads[name] = (loss, {n: p.grad.float().cpu()
+                              for n, p in model.named_parameters()})
+        assert list(events)[-1][0] == 2
+        ran = [a - b for a, b in zip((fa.launches, fa.launches_bwd_dq,
+                                      fa.launches_bwd_dkv), before)]
+        if name == "gpu":
+            assert all(r >= 2 * cfg.num_hidden_layers for r in ran), ran
+            assert all(torch.isfinite(p).all() for p in model.parameters())
+    (gl, gg), (cl, cg) = grads["gpu"], grads["cpu"]
+    assert abs(gl - cl) / abs(cl) < 1e-3
+    assert _global_rel(gg, cg) < 5e-2
+
+
+def test_estimate_card_vs_cpu(cuda_device):
+    """The gradient-sensitivity estimate on the card (bf16, K1-K3)
+    against fp32 on the CPU: every target's value within 5e-2."""
+    from acestep_torch.training.presets import estimate_gradient_sensitivity
+
+    cfg, gpu, cpu, batch, draws = _train_pair(cuda_device)
+    before = fa.launches_bwd_dkv
+    got = dict(estimate_gradient_sensitivity(gpu, cfg, [batch],
+                                             draws=[draws]))
+    assert fa.launches_bwd_dkv - before >= cfg.num_hidden_layers
+    want = dict(estimate_gradient_sensitivity(cpu, cfg, [batch],
+                                              draws=[draws]))
+    assert set(got) == set(want) and len(got) == 11
+    for name, v in want.items():
+        assert abs(got[name] - v) < 5e-2 * v, (name, got[name], v)
+
+
+def test_dataset_encode_launches_k4_three_times_a_song(cuda_device,
+                                                       tmp_path):
+    """The dataset build's encode stage on the full-width VAE: K4 runs the
+    encoder's three C <= 256 stacks once per song; the tensors stage
+    reuses the encoded latents and launches no K4."""
+    import wave
+
+    import numpy as np
+
+    from acestep_torch.config import DiTConfig, VAEConfig
+    from acestep_torch.pipeline.handler import AceStepHandler
+    from acestep_torch.training.dataset_builder import DatasetBuildPipeline
+
+    h = AceStepHandler(DiTConfig.tiny(fsq_dim=64, head_dim=128), VAEConfig(),
+                       dtype=torch.bfloat16, device=cuda_device)
+    h.initialize_service(seed=0)
+    audio = tmp_path / "audio"
+    audio.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        with wave.open(str(audio / f"s{i}.wav"), "wb") as f:
+            f.setnchannels(2)
+            f.setsampwidth(2)
+            f.setframerate(48000)
+            f.writeframes((0.2 * rng.standard_normal((96000, 2)) * 32767)
+                          .astype("<i2").tobytes())
+    pipe = DatasetBuildPipeline(str(audio), str(tmp_path / "ds"), h,
+                                external_labelers=[])
+    pipe.stage_scan()
+    before = sc.launches
+    assert pipe.stage_encode() == 2
+    assert sc.launches - before == 2 * 3
+    pipe.stage_label()
+    pipe.stage_manifest()
+    before = sc.launches
+    assert pipe.stage_tensors() == {"tensors": 2}
+    assert sc.launches == before
+    lat = np.load(next((tmp_path / "ds" / "latents").glob("*.npy")))
+    assert lat.shape == (50, 64) and np.isfinite(lat).all()

@@ -7,7 +7,7 @@ timestamps, timings and absolute paths are replaced by markers (and the
 /health service name, which names the package). Request mapping
 (`request_to_params`) and the coalescing key are equal on both sides over
 generated request bodies, the coalescing queue behaves the same, and every
-/v1/dataset/* route answers the named not-ported error. Exact equality
+/v1/dataset/* route answers as the JAX server's does. Exact equality
 throughout: nothing here computes in floating point.
 """
 
@@ -500,7 +500,7 @@ def test_result_payload_is_json(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# /v1/dataset/*: not ported (ROADMAP item 12.3)
+# /v1/dataset/*: the same status and envelope as the JAX server
 # ---------------------------------------------------------------------------
 
 DATASET_ROUTES = [
@@ -520,18 +520,35 @@ DATASET_ROUTES = [
 
 
 @pytest.fixture(scope="module")
-def torch_server(tmp_path_factory):
-    srv = Server("torch", str(tmp_path_factory.mktemp("dataset")))
-    yield srv
-    srv.close()
+def dataset_servers(tmp_path_factory):
+    root = tmp_path_factory.mktemp("dataset")
+    made = {side: Server(side, str(root / side)) for side in SIDES}
+    yield made
+    for srv in made.values():
+        srv.close()
 
 
 @pytest.mark.parametrize("method,route", DATASET_ROUTES)
-def test_dataset_routes_answer_not_ported(torch_server, method, route):
-    status, out = torch_server.request(method, route, {"audio_dir": "x"})
-    assert status == 501
-    assert out["code"] == 501 and out["data"] is None
-    assert "ROADMAP item 12.3" in out["error"]
+def test_dataset_routes_answer_like_jax(dataset_servers, monkeypatch, method,
+                                        route):
+    """Each route on a server with no dataset session yet and a missing
+    audio dir: the port's status code and envelope equal the JAX
+    server's (timestamps aside). Both resolve user paths under the same
+    safe root (the test's directory, which conftest gives the JAX
+    package)."""
+    from acestep_tpu.utils.path_safety import get_safe_root
+
+    monkeypatch.setattr("acestep_torch.utils.path_safety._SAFE_ROOT",
+                        get_safe_root())
+    answers = {}
+    for side, srv in dataset_servers.items():
+        status, out = srv.request(method, route, {"audio_dir": "x"})
+        answers[side] = (status, {k: v for k, v in out.items()
+                                  if k != "timestamp"})
+    assert answers["torch"] == answers["jax"]
+    status, out = answers["torch"]
+    assert status != 501 and out["code"] == status
+    assert set(out) == {"data", "code", "error", "extra"}
 
 
 @pytest.mark.parametrize("env", [{}, {"ACESTEP_DEBUG_DIT": "1"},
