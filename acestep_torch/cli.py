@@ -505,11 +505,15 @@ def build_parser() -> argparse.ArgumentParser:
                              "for an audio file and exit")
     parser.add_argument("--codes-out", default=None)
     parser.add_argument("--mesh", default=os.environ.get("ACESTEP_MESH"),
-                        help="multi-device DiT mesh 'DPxTP' (not ported "
-                             "yet: anything above one device raises; env: "
-                             "ACESTEP_MESH)")
+                        help="multi-device DiT mesh 'DPxTP' (e.g. '4x2') or "
+                             "device count: one process per device, this "
+                             "one rank 0 (nccl on cards, gloo with --device "
+                             "cpu; env: ACESTEP_MESH)")
     parser.add_argument("--lm-tensor-parallel", type=int,
-                        default=int(os.environ.get("ACESTEP_LM_TP", "1")))
+                        default=int(os.environ.get("ACESTEP_LM_TP", "1")),
+                        help="tensor-parallel degree for the LM planner; it "
+                             "takes the first ranks of --mesh's processes "
+                             "when both are given")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA device; 'cpu' "
                              "runs the plain versions of the kernels in "
@@ -519,8 +523,9 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _build_handlers(args):
-    """(DiT handler, LM handler or None) on the requested device."""
+def _build_handlers(args, mesh_spec=None):
+    """(DiT handler, LM handler or None) on the requested device, the DiT
+    over a (dp, tp) `mesh_spec` when one is given."""
     import torch
 
     from acestep_torch.config import DiTConfig, VAEConfig
@@ -540,6 +545,10 @@ def _build_handlers(args):
     print("Initializing service...", flush=True)
     handler.initialize_service(checkpoint_dir=args.checkpoint_dir,
                                vae_dir=args.vae_dir)
+    if mesh_spec:
+        handler.enable_mesh(dp=mesh_spec[0], tp=mesh_spec[1])
+        print(f"mesh enabled: dp={mesh_spec[0]} x tp={mesh_spec[1]}",
+              flush=True)
     llm = None
     if args.lm_checkpoint_dir or args.tiny:
         # without a checkpoint, LLMHandler.initialize builds the miniature
@@ -570,13 +579,19 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     # validate the mesh spec BEFORE the service init so a malformed
     # '--mesh 4x' fails immediately (the server's ordering)
-    if parse_mesh_spec(args.mesh) or args.lm_tensor_parallel > 1:
-        raise NotImplementedError(
-            "the device mesh and the tensor-parallel LM (--mesh, "
-            "--lm-tensor-parallel) are not ported yet: they come with "
-            "ROADMAP item 15 of the PyTorch port (acestep_tpu has them)")
-    handler, llm = _build_handlers(args)
+    mesh_spec = parse_mesh_spec(args.mesh)
+    handler, llm = _build_handlers(args, mesh_spec)
+    try:
+        return _run(args, handler, llm)
+    finally:
+        # stop the mesh's follower processes
+        handler.release_mesh()
+        if llm is not None:
+            llm.release()
 
+
+def _run(args, handler, llm) -> int:
+    """The CLI's action on built handlers."""
     if args.lora:
         info = handler.lora.load(args.lora, scale=args.lora_scale)
         print(f"loaded LoRA {info['adapter_name']} (scale {info['scale']})")

@@ -31,6 +31,7 @@ JAX's (greedy decoding, temperature 0, matches JAX token for token).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import re
 from typing import Callable, Dict, List, Optional, Sequence
@@ -178,8 +179,77 @@ class _GraphStep:
         return self.out
 
 
+def _logits_at(model: QwenLM, cfg: LMConfig, cache: KVCache,
+               ids: torch.Tensor, start, lo: int, hi: int,
+               last: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Feed `ids` (rows, L) at `start`, writing the cache; logits over
+    [lo, hi) at each row's position `last` (default: the only one)."""
+    hidden = lm_forward(model, cfg, ids, cache, start_pos=start)
+    if last is not None:
+        hidden = hidden[torch.arange(ids.shape[0], device=ids.device),
+                        last][:, None, :]
+    return lm_logits_slice(model, cfg, hidden, lo, hi)[:, 0]
+
+
+# ---- mesh commands (parallel/mesh): every rank of a tensor-parallel
+# engine runs them on its shard and its own caches, which rank 0's engine
+# names by uid
+
+
+def _mesh_new_cache(ctx, root, key: str, cfg: LMConfig, uid: int,
+                    rows: int, slots: int, dtype, quantized: bool):
+    cache = KVCache.create(cfg, rows, slots, dtype=dtype,
+                           quantized=quantized, device=ctx.device)
+    cache.uid = uid
+    ctx.objects.setdefault(key + "/caches", {})[uid] = cache
+    return cache
+
+
+def _mesh_free_caches(ctx, root, key: str, uids: List[int]):
+    caches = ctx.objects.get(key + "/caches", {})
+    for uid in uids:
+        caches.pop(uid, None)
+
+
+def _mesh_graft(ctx, root, key: str, dst: int, src: int, copy: int):
+    caches = ctx.objects[key + "/caches"]
+    caches[dst].graft_prefix(caches[src], copy)
+
+
+def _mesh_logits(ctx, root, key: str, cfg: LMConfig, uid: int, ceil: int,
+                 ids: torch.Tensor, start: torch.Tensor, lo: int, hi: int,
+                 last: Optional[torch.Tensor]):
+    cache = ctx.objects[key + "/caches"][uid]
+    if ceil < cache.slots:
+        cache = cache.view(ceil)
+    dev = ctx.device
+    return _logits_at(ctx.objects[key], cfg, cache, ids.to(dev),
+                      start.to(dev), lo, hi,
+                      None if last is None else last.to(dev))
+
+
+def _mesh_logprob(ctx, root, key: str, cfg: LMConfig, ids, target_start,
+                  dtype):
+    from acestep_torch.scoring.lm_score import sequence_logprob
+
+    return sequence_logprob(ctx.objects[key], cfg, ids, target_start,
+                            dtype=dtype)
+
+
+_ENGINE_KEYS = itertools.count()
+
+
 class LMEngine:
-    """Holds the model, the cache arena and the captured decode steps."""
+    """Holds the model, the cache arena and the captured decode steps.
+
+    With a `mesh` (parallel/mesh.Mesh) the model runs tensor-parallel: the
+    engine installs each rank's shard (heads, intermediate features and
+    the vocabulary split over tp) and keeps the loop here, on rank 0: FSM
+    tables, sampling, penalties, the CFG mix and the prefix cache. Each
+    prefill and decode forward is a mesh command that carries the fed
+    tokens and positions; each rank writes its KV heads into its own copy
+    of the cache buffer rank 0 names. The decode step then runs eagerly
+    (a CUDA graph does not span processes)."""
 
     _CROSS_PREFIX_MAX_SLOTS = 1024
     _ARENA_MAX = 6
@@ -187,20 +257,28 @@ class LMEngine:
     def __init__(self, model: QwenLM, cfg: LMConfig, tokenizer,
                  dtype=torch.bfloat16, max_len: int = 4096, mesh=None,
                  kv_quant: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the tensor-parallel LM (mesh=) is not ported yet "
-                "(ROADMAP item 15)")
-        self.model = model
+        self.mesh = mesh
         self.cfg = cfg
+        # the config of the modules this process runs (one rank's heads
+        # and features under a mesh)
+        self.local_cfg = cfg
+        if mesh is not None:
+            from acestep_torch.parallel.mesh import make_plan
+
+            plan = make_plan(model, cfg, mesh.tp, vocab=cfg.vocab_size)
+            self.local_cfg = plan.local_config(cfg)
+            self._key = f"lm-{next(_ENGINE_KEYS)}"
+            model = mesh.install(self._key, model, plan)
+        self.model = model
         self.tok = tokenizer
         self.dtype = dtype
         self.max_len = max_len
         self.kv_quant = kv_quant
         self.device = model.embed_tokens.device
+        self._uids = itertools.count(1)
         # decode steps as graph replays on a CUDA device; False runs the
         # eager step there, the graphs' oracle
-        self.cuda_graphs = self.device.type == "cuda"
+        self.cuda_graphs = self.device.type == "cuda" and mesh is None
         # Decode steps emit logits over [0, vocab_use) only: ids beyond the
         # tokenizer are undecodable padding. The bound is the max ASSIGNED
         # token id + 1 rounded up to 128 (the FSM tables' mask size agrees).
@@ -241,25 +319,69 @@ class LMEngine:
                     if (b.k.shape[1], b.slots) == shape
                     and b.k.data_ptr() not in held), None)
         if buf is None:
-            buf = KVCache.create(self.cfg, rows, slots, dtype=self.dtype,
-                                 quantized=self.kv_quant, device=self.device)
+            buf = self._new_cache(rows, slots)
         else:
             self._arena.remove(buf)
+        evicted = []
         for old in [b for b in self._arena if b.k.data_ptr() not in held]:
             if len(self._arena) < self._ARENA_MAX:
                 break
             self._arena.remove(old)
+            evicted.append(old.uid)
             self._graphs = {k: g for k, g in self._graphs.items()
                             if k[0] != old.k.data_ptr()}
+        if evicted and self.mesh is not None:
+            self.mesh.call(_mesh_free_caches, self._key, evicted)
         self._arena.append(buf)
         buf.epoch += 1
         return buf
 
+    def _new_cache(self, rows: int, slots: int) -> KVCache:
+        """A (rows, slots) cache of this process's KV heads; under a mesh,
+        one on every rank under a new uid."""
+        if self.mesh is None:
+            return KVCache.create(self.cfg, rows, slots, dtype=self.dtype,
+                                  quantized=self.kv_quant,
+                                  device=self.device)
+        return self.mesh.call(_mesh_new_cache, self._key, self.local_cfg,
+                              next(self._uids), rows, slots, self.dtype,
+                              self.kv_quant)
+
+    def _graft(self, cache: KVCache, src: KVCache, copy: int) -> None:
+        if self.mesh is None:
+            cache.graft_prefix(src, copy)
+        else:
+            self.mesh.call(_mesh_graft, self._key, cache.uid, src.uid, copy)
+
+    def _logits(self, cache: KVCache, ids: torch.Tensor, start, lo: int,
+                hi: int, last: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """`_logits_at` on this engine's model, or as a mesh command on
+        every rank's shard (the fed tokens and positions sent from the
+        host)."""
+        if self.mesh is None:
+            return _logits_at(self.model, self.cfg, cache, ids, start, lo,
+                              hi, last)
+        start = torch.as_tensor(start).reshape(-1)
+        return self.mesh.call(
+            _mesh_logits, self._key, self.local_cfg, cache.uid, cache.slots,
+            ids.cpu(), start.cpu(), lo, hi,
+            None if last is None else last.cpu())
+
+    def sequence_logprob(self, input_ids, target_start: int) -> float:
+        """`scoring.lm_score.sequence_logprob` on this engine's model (on
+        every rank's shard under a mesh)."""
+        from acestep_torch.scoring.lm_score import sequence_logprob
+
+        if self.mesh is None:
+            return sequence_logprob(self.model, self.cfg, input_ids,
+                                    target_start, dtype=self.dtype)
+        return self.mesh.call(_mesh_logprob, self._key, self.local_cfg,
+                              input_ids, target_start, self.dtype)
+
     def _step_eager(self, toks: torch.Tensor, cache: KVCache,
                     row_lens: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-        hidden = lm_forward(self.model, self.cfg, toks[:, None], cache,
-                            start_pos=row_lens)
-        return lm_logits_slice(self.model, self.cfg, hidden, lo, hi)[:, 0]
+        return self._logits(cache, toks[:, None], row_lens, lo, hi)
 
     def decode_step(self, cache: KVCache, row_lens: torch.Tensor, lo: int,
                     hi: int) -> Callable:
@@ -359,7 +481,7 @@ class LMEngine:
         if prefix is not None and int(P.max()) > 0:
             copy = min(_kv_bucket(int(P.max())), prefix.cache.slots,
                        cache_len)
-            cache.graft_prefix(prefix.cache, copy)
+            self._graft(cache, prefix.cache, copy)
         self.last_prefill_stats = {
             "rows": len(rows),
             "prompt_tokens": int(np.sum(lens)),
@@ -371,13 +493,10 @@ class LMEngine:
             self.prefill_stats[k] += self.last_prefill_stats[k]
 
         dev = self.device
-        hidden = lm_forward(self.model, self.cfg,
-                            torch.as_tensor(ids, device=dev), cache,
-                            start_pos=torch.as_tensor(P, device=dev))
-        idx = torch.as_tensor(np.clip(dlens - 1, 0, D - 1), device=dev)
-        last = hidden[torch.arange(len(rows), device=dev), idx]
-        logits = lm_logits_slice(self.model, self.cfg, last[:, None, :],
-                                 0, self.vocab_use)[:, 0]
+        logits = self._logits(
+            cache, torch.as_tensor(ids, device=dev),
+            torch.as_tensor(P, device=dev), 0, self.vocab_use,
+            last=torch.as_tensor(np.clip(dlens - 1, 0, D - 1), device=dev))
         return logits, cache, lens, budget
 
     def _generator(self, seed: int) -> torch.Generator:

@@ -9,14 +9,16 @@ understand / create-sample / format modes, and output parsing.
 
 One backend: llm/generator.LMEngine, whose decode step replays as a CUDA
 graph on the card. Quantized planners (`quantization=`, ops/quant) run
-the same engine; the tensor-parallel LM (`tensor_parallel` > 1) is not
-ported yet and raises.
+the same engine; `tensor_parallel=n` runs it over a 1 x n mesh of
+processes (parallel/mesh.py), the vocabulary and w8a8's `head_q` split
+with the heads.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import weakref
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -109,7 +111,34 @@ class LLMHandler:
         self.tokenizer = None
         self.tables: Optional[TokenTables] = None
         self.max_duration = 600
+        self.mesh = None          # parallel.mesh.Mesh of a tp > 1 engine
+        self._init_args: Dict[str, Any] = {}
         self.initialized = False
+
+    @property
+    def engine(self) -> Optional[LMEngine]:
+        """The planner's engine. A tensor-parallel engine whose mesh went
+        down (a rank failed a forward) is built again first, from the
+        arguments of the last `initialize`, on a new world."""
+        if self.mesh is not None and self.mesh.down:
+            self._revive()
+        return self._engine
+
+    @engine.setter
+    def engine(self, engine: Optional[LMEngine]) -> None:
+        self._engine = engine
+
+    def _revive(self) -> None:
+        from acestep_torch.parallel.mesh import MeshError
+
+        args = dict(self._init_args)
+        if isinstance(args["params"], weakref.ref):
+            args["params"] = args["params"]()
+            if args["params"] is None:
+                raise MeshError(
+                    "the planner's mesh is down and the model it was "
+                    "initialized with is gone: call initialize() again")
+        self.initialize(**args)
 
     # --------------------------------------------------------------
 
@@ -143,10 +172,20 @@ class LLMHandler:
         build_head_q) and drops an untied float head.
 
         kv_quant: int8 KV cache (per-vector scales, models/lm.KVCache).
-        Default follows the weight mode: on for w8a8, off otherwise."""
-        if tensor_parallel > 1:
-            raise NotImplementedError(
-                "the tensor-parallel LM is not ported yet (ROADMAP item 15)")
+        Default follows the weight mode: on for w8a8, off otherwise.
+
+        tensor_parallel: > 1 shards the planner over a 1 x n mesh of the
+        first n ranks (parallel/mesh.make_mesh: this process's world when
+        one exists, else n ranks from the handler's device on); the engine
+        then decodes eagerly. A model given as `params` is held weakly for
+        a rebuild of the mesh (`engine`)."""
+        self._init_args = dict(
+            checkpoint_dir=checkpoint_dir, cfg=cfg, tokenizer=tokenizer,
+            params=weakref.ref(params) if isinstance(params, torch.nn.Module)
+            else params, seed=seed, max_duration=max_duration,
+            num_fallback_codes=num_fallback_codes,
+            tensor_parallel=tensor_parallel, quantization=quantization,
+            kv_quant=kv_quant, max_len=max_len)
         from acestep_torch.models.lm import (
             QwenLM, build_head_q, build_lm, init_lm_params,
         )
@@ -195,9 +234,23 @@ class LLMHandler:
             # codes budget for the longest plan + 2048 tokens of prompt
             # (system + caption + lyrics + CoT) headroom
             max_len = max(4096, int(max_duration) * 5 + 8 + 2048)
-        self.engine = LMEngine(model, self.cfg, self.tokenizer,
-                               dtype=self.dtype, kv_quant=kv_quant,
-                               max_len=max_len)
+        mesh = None
+        if tensor_parallel > 1:
+            from acestep_torch.parallel.mesh import make_mesh, mesh_devices
+
+            # made before the old mesh lets its world go, so that a world
+            # that went down starts again on its own devices
+            mesh = make_mesh(1, tensor_parallel,
+                             devices=mesh_devices(self.device))
+        self.release()
+        self.mesh = mesh
+        try:
+            self.engine = LMEngine(model, self.cfg, self.tokenizer,
+                                   dtype=self.dtype, kv_quant=kv_quant,
+                                   max_len=max_len, mesh=self.mesh)
+        except BaseException:
+            self.release()
+            raise
         self.tables = TokenTables(self.tokenizer)
         self.genres_vocab = None
         genres_path = os.environ.get("ACESTEP_GENRES_VOCAB") or (
@@ -275,6 +328,15 @@ class LLMHandler:
                 del e
                 release_device_memory()
         raise AssertionError("unreachable: last plan entry re-raises")
+
+    def release(self) -> None:
+        """Drop the engine and shut its mesh down (a tp > 1 planner's
+        followers stop with the last mesh of the process)."""
+        mesh, self.mesh = self.mesh, None
+        if mesh is not None:
+            self.engine = None
+            self.initialized = False
+            mesh.close()
 
     # --------------------------------------------------------------
     # Prompt building (reference build_formatted_prompt*)

@@ -25,6 +25,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from acestep_torch.config import LMConfig
@@ -124,6 +125,7 @@ class KVCache:
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
     epoch: int = 0
+    uid: int = 0          # the name a mesh's ranks know the buffer by
 
     @classmethod
     def create(cls, cfg: LMConfig, batch: int, max_len: int,
@@ -153,7 +155,7 @@ class KVCache:
         def f(a):
             return None if a is None else a[:, :, :, :ceil]
         return KVCache(f(self.k), f(self.v), f(self.k_scale), f(self.v_scale),
-                       self.epoch)
+                       self.epoch, self.uid)
 
     @torch.no_grad()
     def graft_prefix(self, src: "KVCache", copy: int) -> "KVCache":
@@ -247,7 +249,7 @@ def lm_forward(model: QwenLM, cfg: LMConfig, input_ids: torch.Tensor,
     quantized = cache.quantized
     # int8 caches don't define the compute dtype; the embed table does
     cdtype = model.embed_tokens.dtype if quantized else cache.k.dtype
-    x = model.embed_tokens[input_ids].to(cdtype)
+    x = embed(model, input_ids).to(cdtype)
 
     start = torch.as_tensor(start_pos, device=dev).long().reshape(-1)
     start = start.expand(B)
@@ -293,6 +295,47 @@ def lm_forward(model: QwenLM, cfg: LMConfig, input_ids: torch.Tensor,
     return rms_norm(model.norm, x, eps)
 
 
+def embed(model: QwenLM, ids: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of `ids`. A shard whose table is split along the
+    vocabulary (`tp_vocab`, set by parallel/mesh) looks up the ids among
+    its rows, zeros the others, and sums over its tp group."""
+    split = model.__dict__.get("tp_vocab")
+    if split is None:
+        return model.embed_tokens[ids]
+    lo, hi, group = split
+    x = model.embed_tokens[(ids - lo).clamp(0, hi - lo - 1)]
+    x = torch.where(((ids >= lo) & (ids < hi))[..., None], x,
+                    torch.zeros((), dtype=x.dtype, device=x.device))
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def _head_split(model: QwenLM, cfg: LMConfig):
+    """(lo, hi, group) of a shard's output-head rows when the head is
+    split along the vocabulary (the tied table or `head_q`), else None
+    (an untied float `lm_head` stays whole)."""
+    split = model.__dict__.get("tp_vocab")
+    if split is None or not (cfg.tie_word_embeddings
+                             or hasattr(model, "head_q")):
+        return None
+    return split
+
+
+def _gather_vocab(part: Optional[torch.Tensor], split, start: int,
+                  end: int, hidden: torch.Tensor) -> torch.Tensor:
+    """The logits over [start, end) from each rank's part over its rows'
+    share of the window (None when it has none), summed over the group
+    as zero-padded blocks: each value comes from one rank unchanged."""
+    lo, hi, group = split
+    out = torch.zeros(*hidden.shape[:-1], end - start, dtype=torch.float32,
+                      device=hidden.device)
+    a, b = max(start, lo), min(end, hi)
+    if part is not None:
+        out[..., a - start:b - start] = part
+    dist.all_reduce(out, group=group)
+    return out
+
+
 class HeadQ(nn.Module):
     """Int8 copy of the output head for w8a8 decoding: `q` (V, H) int8,
     rows along the vocab, and per-row float32 `scale` (V, 1)."""
@@ -317,17 +360,23 @@ def build_head_q(model: QwenLM, cfg: LMConfig) -> HeadQ:
 
 def lm_logits(model: QwenLM, cfg: LMConfig,
               hidden: torch.Tensor) -> torch.Tensor:
-    """(B, L, H) -> (B, L, V) float32."""
+    """(B, L, H) -> (B, L, V) float32; a vocab-split shard computes its
+    rows and gathers the rest over its tp group."""
     if cfg.tie_word_embeddings:
         w = model.embed_tokens.to(hidden.dtype)
-        return (hidden @ w.T).float()
-    if not hasattr(model, "lm_head"):
+        out = (hidden @ w.T).float()
+    elif not hasattr(model, "lm_head"):
         # untied w8a8 drops the float head (`head_q` holds the int8 copy);
         # this full-vocab path dequantizes it
         hq = model.head_q
         w = (hq.q.float() * hq.scale).to(hidden.dtype)
-        return (hidden @ w.T).float()
-    return linear(model.lm_head, hidden).float()
+        out = (hidden @ w.T).float()
+    else:
+        return linear(model.lm_head, hidden).float()
+    split = _head_split(model, cfg)
+    if split is None:
+        return out
+    return _gather_vocab(out, split, 0, cfg.vocab_size, hidden)
 
 
 def lm_logits_slice(model: QwenLM, cfg: LMConfig, hidden: torch.Tensor,
@@ -337,7 +386,21 @@ def lm_logits_slice(model: QwenLM, cfg: LMConfig, hidden: torch.Tensor,
     rows (the codes phase samples only the 64k audio-code block).
 
     With `head_q` (a w8a8 LM, `build_head_q`) the window multiplies as
-    int8 x int8 -> int32 with per-token activation scales."""
+    int8 x int8 -> int32 with per-token activation scales. A vocab-split
+    shard multiplies its rows' share of the window and gathers the rest
+    over its tp group."""
+    split = _head_split(model, cfg)
+    if split is None:
+        return _head_rows(model, cfg, hidden, start, end)
+    lo, hi, _ = split
+    a, b = max(start, lo), min(end, hi)
+    part = _head_rows(model, cfg, hidden, a - lo, b - lo) if a < b else None
+    return _gather_vocab(part, split, start, end, hidden)
+
+
+def _head_rows(model: QwenLM, cfg: LMConfig, hidden: torch.Tensor,
+               start: int, end: int) -> torch.Tensor:
+    """Logits over the head rows [start, end) this module holds."""
     hq = getattr(model, "head_q", None)
     if hq is not None:
         q, sc = hq.q[start:end], hq.scale[start:end]             # (Vw, H)

@@ -158,6 +158,21 @@ def get_x0_from_noise(zt, vt, t):
         -1, 1, 1).to(zt.dtype)
 
 
+def step_noise(xt: torch.Tensor, generator: Optional[torch.Generator],
+               noise_rows: Optional[tuple] = None) -> torch.Tensor:
+    """The SDE renoise draw for xt. `noise_rows` (full batch, first row)
+    marks xt as one dp rank's block of a batch split over a mesh: the
+    rank draws the full batch's noise and keeps its rows, so the stream
+    is the unsplit render's."""
+    if noise_rows is None:
+        return torch.randn(xt.shape, generator=generator, device=xt.device,
+                           dtype=xt.dtype)
+    full, first = noise_rows
+    noise = torch.randn((full,) + tuple(xt.shape[1:]), generator=generator,
+                        device=xt.device, dtype=xt.dtype)
+    return noise[first:first + xt.shape[0]]
+
+
 def renoise(x, t, noise):
     t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
     if t.dim() != x.dim():
@@ -170,10 +185,12 @@ def sample_turbo(model, cfg: DiTConfig, *, x_init: torch.Tensor,
                  cond_non_cover: Optional[ConditionSet] = None,
                  cover_steps: Optional[int] = None,
                  infer_method: str = "ode",
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 noise_rows: Optional[tuple] = None) -> torch.Tensor:
     """Discrete-schedule sampler. `schedule` lists the visited timesteps
     (no trailing 0); the last step lands on x0 (both updates reduce to it
-    when t_next == 0). `generator` draws the SDE renoise noise."""
+    when t_next == 0). `generator` draws the SDE renoise noise
+    (`step_noise`, with `noise_rows` on a dp rank)."""
     n = len(schedule)
     ts = torch.tensor(list(schedule) + [0.0], dtype=x_init.dtype,
                       device=x_init.device)
@@ -186,8 +203,7 @@ def sample_turbo(model, cfg: DiTConfig, *, x_init: torch.Tensor,
         kv, ctx = _select_condition(cond, cond_non_cover, i < cover_cut)
         vt = dit_decoder(model, cfg, xt, t_vec, t_vec, ctx, cross_kv_cache=kv)
         if infer_method == "sde":
-            noise = torch.randn(xt.shape, generator=generator,
-                                device=xt.device, dtype=xt.dtype)
+            noise = step_noise(xt, generator, noise_rows)
             xt = renoise(get_x0_from_noise(xt, vt, t_vec), t_next, noise)
         else:
             xt = xt - vt * (t - t_next)
@@ -204,15 +220,16 @@ def sample_guided(model, cfg: DiTConfig, *, x_init: torch.Tensor,
                   cfg_interval: tuple = (0.0, 1.0),
                   use_adg: bool = False,
                   infer_method: str = "ode",
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  noise_rows: Optional[tuple] = None) -> torch.Tensor:
     """Continuous-schedule CFG sampler (base/sft). `schedule` has steps + 1
     values ending at 0. CFG doubles the batch on dim 0 ([cond; null]);
     guidance is APG (with a float32 momentum buffer carried across steps)
     or ADG, applied only while t lies inside `cfg_interval`. The schedule
     and the interval test take `x_init`'s dtype, as in the JAX package;
     the host decides them from its own copy, so no step waits for the
-    device. `generator` draws the SDE renoise noise."""
+    device. `generator` draws the SDE renoise noise (`step_noise`, with
+    `noise_rows` on a dp rank)."""
     do_cfg = guidance_scale > 1.0 and null_cond is not None
     n = len(schedule) - 1
     dtype, dev = x_init.dtype, x_init.device
@@ -258,8 +275,7 @@ def sample_guided(model, cfg: DiTConfig, *, x_init: torch.Tensor,
         else:
             vt = v
         if infer_method == "sde":
-            noise = torch.randn(xt.shape, generator=generator, device=dev,
-                                dtype=dtype)
+            noise = step_noise(xt, generator, noise_rows)
             # renoise at the UNSHIFTED linear timestep 1 - (i+1)/n, n the
             # step count after cover-noise truncation (not the next
             # schedule value: the two agree only at shift 1)

@@ -16,6 +16,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -81,11 +82,19 @@ def seeded_init_(module: nn.Module, generator: torch.Generator,
 def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """x @ W.T + b. A quantized weight (`ops/quant.QuantWeight`, whose
     `weight` slot is empty unless a merged weight is swapped in) computes
-    from its codes: w8a8 as an int8 product, the others dequantized."""
+    from its codes: w8a8 as an int8 product, the others dequantized.
+
+    A row-parallel shard (`parallel/mesh.attach_groups` sets its
+    `tp_group`) holds a slice of the input features: its partial product
+    is summed over the group before the bias (w8a8 sums its int32 product,
+    `ops/quant.w8a8_matmul`). A module without a group runs as it is."""
+    group = p.__dict__.get("tp_group")
     if p.weight is None:
-        y = quantized_linear(p, x)
+        y = quantized_linear(p, x, group)
     else:
         y = F.linear(x, p.weight.to(x.dtype))
+        if group is not None:
+            dist.all_reduce(y, group=group)
     if p.bias is not None:
         y = y + p.bias.to(x.dtype)
     return y

@@ -32,6 +32,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -95,11 +96,15 @@ def _div(x: torch.Tensor, q: float) -> torch.Tensor:
     return x / d
 
 
-def _channel_scale(w: torch.Tensor, qmax: float) -> torch.Tensor:
+def _channel_scale(w: torch.Tensor, qmax: float, group=None
+                   ) -> torch.Tensor:
     """One scale per row, from the max over the last axis (a weight's
-    in-features, an activation's channels)."""
-    return torch.clamp(_div(w.abs().amax(dim=-1, keepdim=True), qmax),
-                       min=1e-12)
+    in-features, an activation's channels); with a tp `group` the row is
+    split over its ranks and the max is taken over the whole row."""
+    amax = w.abs().amax(dim=-1, keepdim=True)
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    return torch.clamp(_div(amax, qmax), min=1e-12)
 
 
 def _int4_codes(w: torch.Tensor):
@@ -259,35 +264,46 @@ def int8_mm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b_t)
 
 
-def quantize_rows(x: torch.Tensor):
+def quantize_rows(x: torch.Tensor, group=None):
     """Symmetric int8 over the last axis, one scale per row: (codes,
     float32 scales (..., 1)). A weight's rows are its output channels; an
-    activation's are its tokens."""
+    activation's are its tokens (split over a tp `group`'s ranks when one
+    is given)."""
     xf = x.float()
-    scale = _channel_scale(xf, 127.0)
+    scale = _channel_scale(xf, 127.0, group)
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), \
         scale
 
 
 def w8a8_matmul(x: torch.Tensor, codes: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
+                scale: torch.Tensor, group=None) -> torch.Tensor:
     """Dynamic-activation int8 product: x (..., in) @ codes (out, in).T.
 
     Per-token symmetric activation codes, the int8 x int8 -> int32
     product, then the int32 sums scaled by (token scale x channel scale)
-    in float32 and cast to x's dtype, in the JAX package's order."""
-    xq, xs = quantize_rows(x)
+    in float32 and cast to x's dtype, in the JAX package's order. A
+    row-parallel shard (tp `group`) takes each token's scale over the
+    whole row and sums the int32 products over the group, so its result
+    is the unsplit product's bit for bit."""
+    xq, xs = quantize_rows(x, group)
     lead = x.shape[:-1]
     y = int8_mm(xq.reshape(-1, x.shape[-1]), codes.t())
+    if group is not None:
+        dist.all_reduce(y, group=group)
     y = y.reshape(*lead, codes.shape[0])
     return (y.float() * (xs * scale.reshape(-1))).to(x.dtype)
 
 
-def quantized_linear(p: QuantWeight, x: torch.Tensor) -> torch.Tensor:
-    """x @ W.T of a QuantWeight with no swapped-in weight (no bias)."""
+def quantized_linear(p: QuantWeight, x: torch.Tensor,
+                     group=None) -> torch.Tensor:
+    """x @ W.T of a QuantWeight with no swapped-in weight (no bias),
+    summed over a row-parallel shard's tp `group` when one is given."""
     if p.mode == "w8a8":
-        return w8a8_matmul(x, p.codes, p.scale)
-    return F.linear(x, p.dequantize().to(x.dtype))
+        return w8a8_matmul(x, p.codes, p.scale, group)
+    y = F.linear(x, p.dequantize().to(x.dtype))
+    if group is not None:
+        dist.all_reduce(y, group=group)
+    return y
 
 
 def conv_weight(p: nn.Module, dtype) -> torch.Tensor:

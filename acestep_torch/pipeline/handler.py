@@ -15,13 +15,14 @@ cache; the handler keeps its model modules on one device.
 
 `initialize_service(quantization=...)` stores the DiT quantized
 (ops/quant); `generate_lrc` aligns lyrics to a render's latents through
-the decoder's cross-attention. Still raising NotImplementedError by name:
-the device mesh (`enable_mesh`).
+the decoder's cross-attention; `enable_mesh(dp, tp)` runs the generate
+program over a dp x tp mesh of processes (parallel/mesh.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import random
 import re
@@ -96,16 +97,123 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice "
-        f"of the PyTorch port (acestep_tpu has it)")
+_MESH_KEYS = itertools.count()
 
 
 def _is_cover_instruction(instruction: Optional[str]) -> bool:
     ins = (instruction or "").lower()
     return ("generate audio semantic tokens" in ins
             and "based on the given conditions" in ins)
+
+
+def trajectory(model, cfg: DiTConfig, inputs: Dict[str, torch.Tensor], *,
+               dtype, schedule, method: str, start_t,
+               generators: List[torch.Generator], guidance_scale: float,
+               use_adg: bool, cfg_interval: tuple,
+               cover_steps: Optional[int], sde_generator=None,
+               noise_rows: Optional[tuple] = None) -> torch.Tensor:
+    """Condition encode + trajectory -> x0 (B, T, 64) fp32: the JAX
+    handler's generate program. `generators` draw each row's initial
+    noise, `sde_generator` (default: the first row's) the SDE step noise;
+    a dp rank of a mesh passes `noise_rows` (the full batch, its first
+    row) so the step noise is its rows of the full batch's draw."""
+    common = dict(
+        lyric_hidden_states=inputs["lyric_hidden_states"],
+        lyric_attention_mask=inputs["lyric_attention_mask"],
+        refer_audio_packed=inputs["refer_audio_packed"],
+        refer_order_mask=inputs["refer_order_mask"],
+        chunk_masks=inputs["chunk_masks"],
+        silence_latent=inputs["silence_latent"])
+    codes = {k: inputs[k] for k in ("audio_codes",
+                                    "audio_codes_valid_frames")
+             if k in inputs}
+    enc, _m, ctx = prepare_condition(
+        model, cfg, text_hidden_states=inputs["text_hidden_states"],
+        text_attention_mask=inputs["text_attention_mask"],
+        src_latents=inputs["src_latents"], is_covers=inputs["is_covers"],
+        **common, **codes)
+    cond = ConditionSet.build(model, cfg, enc, ctx)
+    cond_nc = None
+    if "non_cover_text_hidden_states" in inputs:
+        enc_nc, _m2, ctx_nc = prepare_condition(
+            model, cfg,
+            text_hidden_states=inputs["non_cover_text_hidden_states"],
+            text_attention_mask=inputs["non_cover_text_attention_mask"],
+            src_latents=inputs["silence_src"],
+            is_covers=torch.zeros_like(inputs["is_covers"]), **common)
+        cond_nc = ConditionSet.build(model, cfg, enc_nc, ctx_nc)
+
+    B, T = inputs["src_latents"].shape[:2]
+    device = inputs["src_latents"].device
+    if "initial_noise" in inputs:
+        # seed-parity seam: externally supplied noise, so trajectories
+        # can be compared across frameworks
+        noise = inputs["initial_noise"].to(dtype)
+    else:
+        noise = torch.stack([
+            torch.randn((T, cfg.audio_acoustic_hidden_dim), generator=g,
+                        device=device, dtype=dtype)
+            for g in generators])
+    x_init = noise if start_t is None else renoise(
+        inputs["src_latents"], start_t, noise)
+    sde = dict(generator=(generators[0] if sde_generator is None
+                          else sde_generator), noise_rows=noise_rows)
+    if cfg.model_version == "turbo":
+        x0 = sample_turbo(model, cfg, x_init=x_init, schedule=schedule,
+                          cond=cond, cond_non_cover=cond_nc,
+                          cover_steps=cover_steps, infer_method=method,
+                          **sde)
+    else:
+        null_cond = None
+        if guidance_scale > 1.0:
+            # the null condition keeps the conditional context latents
+            null = model.null_condition_emb.to(enc.dtype).expand(enc.shape)
+            null_cond = ConditionSet.build(model, cfg, null, ctx)
+        x0 = sample_guided(model, cfg, x_init=x_init, schedule=schedule,
+                           cond=cond, null_cond=null_cond,
+                           cond_non_cover=cond_nc, cover_steps=cover_steps,
+                           guidance_scale=guidance_scale,
+                           cfg_interval=cfg_interval, use_adg=use_adg,
+                           infer_method=method, **sde)
+    return x0.float()
+
+
+def _mesh_render(ctx, root, key: str, cfg: DiTConfig, dtype,
+                 inputs: Dict[str, torch.Tensor], seeds: List[int],
+                 kwargs: dict):
+    """One render on every rank of a DiT mesh: each dp rank takes its block
+    of rows and makes generators from its rows' seeds, runs `trajectory`
+    on its shard (the tp ranks of a block together), and rank 0 gets the
+    whole batch's x0."""
+    from acestep_torch.parallel.mesh import gather_rows
+
+    dev = ctx.device
+    B = len(seeds)
+    n = B // ctx.dp
+    first = ctx.dp_rank * n
+    local = {k: v.to(dev) if k == "silence_latent"
+             else v[first:first + n].to(dev) for k, v in inputs.items()}
+    # the packed references' batch ids count from this block's first row
+    local["refer_order_mask"] = local["refer_order_mask"] - first
+    generators = [torch.Generator(dev).manual_seed(s)
+                  for s in seeds[first:first + n]]
+    sde_generator = None
+    if first and kwargs["method"] == "sde":
+        # the first row's generator, as it stands after its noise draw
+        sde_generator = torch.Generator(dev).manual_seed(seeds[0])
+        if "initial_noise" not in local:
+            torch.randn((local["src_latents"].shape[1],
+                         cfg.audio_acoustic_hidden_dim),
+                        generator=sde_generator, device=dev, dtype=dtype)
+    model = ctx.objects[key]
+    x0 = call_with_weights(
+        model, ctx.objects.get(key + "/weights", {}),
+        lambda m: trajectory(m, cfg, local, dtype=dtype,
+                             generators=generators,
+                             sde_generator=sde_generator,
+                             noise_rows=(B, first) if ctx.dp > 1 else None,
+                             **kwargs))
+    return gather_rows(ctx, x0, B)
 
 
 @dataclasses.dataclass
@@ -142,6 +250,8 @@ class AceStepHandler:
         self.checkpoint_dir: Optional[str] = None
         self.text_embedder = None
         self.lora: Optional[LoraManager] = None
+        self.mesh = None                   # parallel.mesh.Mesh (enable_mesh)
+        self._mesh_key = f"dit-{next(_MESH_KEYS)}"
         self._seg_frames = SEG_FRAMES
         self.initialized = False
         self.tier = get_tier_config(detect_hbm_gb(self.device))
@@ -215,6 +325,8 @@ class AceStepHandler:
             dim=self.cfg.text_hidden_dim)
         self.lora = LoraManager(self.model)
         self.initialized = True
+        if self.mesh is not None and not self._revive_mesh():
+            self._install_mesh()
 
     def _build_qwen_embedder(self):
         """Qwen3-Embedding text encoder found locally: inside the
@@ -245,12 +357,92 @@ class AceStepHandler:
             return None
         return QwenTextEmbedder(model, cfg, tok, dtype=self.dtype)
 
-    def enable_mesh(self, *args, **kwargs):
-        raise _not_ported("the device mesh (enable_mesh)", "multi-device")
+    def enable_mesh(self, dp: Optional[int] = None, tp: int = 1) -> None:
+        """Shard generation over a dp x tp mesh (`parallel/mesh.py`).
+
+        dp splits the batch (each dp rank holds the DiT whole, or its tp
+        shard); tp splits attention heads and the MLP's intermediate
+        features, so one song's denoising spreads over tp devices with an
+        all-reduce after each row-parallel product. The mesh runs the
+        generate program only (condition encoders, cross K/V, the
+        sampler); text embedding, VAE decode and encode, LRC and scoring
+        stay on this process's device, as in JAX. A batch pads to a
+        multiple of dp with repeats of the request rows, trimmed from
+        every output. The ranks are this handler's device and the other
+        visible cards, with NCCL (`os.cpu_count()` CPU ranks over gloo for
+        a CPU handler), or the ranks of the process's world when one
+        exists (`parallel.mesh_devices`: ranks that share a card are a
+        world made with gloo first); dp defaults to all of them over tp.
+        A mesh that goes down (a rank failed a render) is made again, on
+        a new world, before the next render."""
+        from acestep_torch.parallel.mesh import mesh_devices
+
+        if not self.initialized:
+            raise RuntimeError("call initialize_service() first")
+        if dp is None:
+            dp = max(1, len(mesh_devices(self.device)) // tp)
+        self.release_mesh()
+        self._make_mesh(dp, tp)
+
+    def _make_mesh(self, dp: int, tp: int) -> None:
+        from acestep_torch.parallel.mesh import make_mesh, mesh_devices
+
+        mesh = make_mesh(dp, tp, devices=mesh_devices(self.device))
+        try:
+            self.mesh = mesh
+            self._install_mesh()
+        except BaseException:
+            self.mesh = None
+            mesh.close()
+            raise
+
+    def _install_mesh(self) -> None:
+        """The DiT's shards onto the mesh's ranks (at `enable_mesh` and
+        after a re-initialisation)."""
+        from acestep_torch.parallel.mesh import make_plan
+
+        self._mesh_plan = make_plan(self.model, self.cfg, self.mesh.tp)
+        self._mesh_weights = None
+        self.mesh.install(self._mesh_key, self.model, self._mesh_plan)
+
+    def _revive_mesh(self) -> bool:
+        """Make the mesh again, on a new world, when it went down (a rank
+        failed a command); True when it did, its shards installed."""
+        if not self.mesh.down:
+            return False
+        # the new mesh is made before the old one lets its world go, so
+        # the new world keeps the old one's devices and backend
+        old = self.mesh
+        try:
+            self._make_mesh(old.dp, old.tp)
+        except BaseException:
+            self.mesh = old           # still down: the next render retries
+            raise
+        old.close()
+        return True
+
+    def _sync_mesh_weights(self) -> None:
+        """Make the mesh again when it went down; send the ranks the LoRA
+        manager's effective weights when they changed since the last
+        render, so a mesh never renders stale adapter weights."""
+        self._revive_mesh()
+        weights = self.lora.effective_weights() if self.lora is not None \
+            else {}
+        if (weights or None) is not self._mesh_weights:
+            self.mesh.send_weights(self._mesh_key, weights, self._mesh_plan)
+            self._mesh_weights = weights or None
+
+    def release_mesh(self) -> None:
+        """Shut the mesh down (its followers stop with the last mesh of
+        the process); the handler renders on its own device again."""
+        mesh, self.mesh = self.mesh, None
+        if mesh is not None:
+            mesh.close()
 
     def get_service_status(self) -> Dict[str, Any]:
         """The JAX handler's status keys; `devices` names the handler's
-        torch device (and the card's name on a CUDA device)."""
+        torch device (and the card's name on a CUDA device), or each rank
+        of its mesh."""
         dev = str(self.device)
         if self.device.type == "cuda":
             dev += f" {torch.cuda.get_device_name(self.device)}"
@@ -258,7 +450,8 @@ class AceStepHandler:
             "initialized": self.initialized,
             "model_version": self.cfg.model_version,
             "dtype": str(self.dtype).removeprefix("torch."),
-            "devices": [dev],
+            "devices": self.mesh.describe() if self.mesh is not None
+            else [dev],
         }
 
     # --------------------------------------------------------------
@@ -569,78 +762,24 @@ class AceStepHandler:
     # Generation
     # --------------------------------------------------------------
 
-    def _trajectory(self, model, inputs: Dict[str, torch.Tensor], *,
-                    schedule, method: str, start_t,
-                    generators: List[torch.Generator], guidance_scale: float,
-                    use_adg: bool, cfg_interval: tuple,
-                    cover_steps: Optional[int]) -> torch.Tensor:
-        """Condition encode + trajectory -> x0 (B, T, 64) fp32."""
-        cfg = self.cfg
-        common = dict(
-            lyric_hidden_states=inputs["lyric_hidden_states"],
-            lyric_attention_mask=inputs["lyric_attention_mask"],
-            refer_audio_packed=inputs["refer_audio_packed"],
-            refer_order_mask=inputs["refer_order_mask"],
-            chunk_masks=inputs["chunk_masks"],
-            silence_latent=inputs["silence_latent"])
-        codes = {k: inputs[k] for k in ("audio_codes",
-                                        "audio_codes_valid_frames")
-                 if k in inputs}
-        enc, _m, ctx = prepare_condition(
-            model, cfg, text_hidden_states=inputs["text_hidden_states"],
-            text_attention_mask=inputs["text_attention_mask"],
-            src_latents=inputs["src_latents"], is_covers=inputs["is_covers"],
-            **common, **codes)
-        cond = ConditionSet.build(model, cfg, enc, ctx)
-        cond_nc = None
-        if "non_cover_text_hidden_states" in inputs:
-            enc_nc, _m2, ctx_nc = prepare_condition(
-                model, cfg,
-                text_hidden_states=inputs["non_cover_text_hidden_states"],
-                text_attention_mask=inputs["non_cover_text_attention_mask"],
-                src_latents=inputs["silence_src"],
-                is_covers=torch.zeros_like(inputs["is_covers"]), **common)
-            cond_nc = ConditionSet.build(model, cfg, enc_nc, ctx_nc)
-
-        B, T = inputs["src_latents"].shape[:2]
-        if "initial_noise" in inputs:
-            # seed-parity seam: externally supplied noise, so trajectories
-            # can be compared across frameworks
-            noise = inputs["initial_noise"].to(self.dtype)
-        else:
-            noise = torch.stack([
-                torch.randn((T, cfg.audio_acoustic_hidden_dim), generator=g,
-                            device=self.device, dtype=self.dtype)
-                for g in generators])
-        x_init = noise if start_t is None else renoise(
-            inputs["src_latents"], start_t, noise)
-        if cfg.model_version == "turbo":
-            x0 = sample_turbo(model, cfg, x_init=x_init, schedule=schedule,
-                              cond=cond, cond_non_cover=cond_nc,
-                              cover_steps=cover_steps, infer_method=method,
-                              generator=generators[0])
-        else:
-            null_cond = None
-            if guidance_scale > 1.0:
-                # the null condition keeps the conditional context latents
-                null = model.null_condition_emb.to(enc.dtype).expand(
-                    enc.shape)
-                null_cond = ConditionSet.build(model, cfg, null, ctx)
-            x0 = sample_guided(model, cfg, x_init=x_init, schedule=schedule,
-                               cond=cond, null_cond=null_cond,
-                               cond_non_cover=cond_nc,
-                               cover_steps=cover_steps,
-                               guidance_scale=guidance_scale,
-                               cfg_interval=cfg_interval, use_adg=use_adg,
-                               infer_method=method, generator=generators[0])
-        return x0.float()
-
     @torch.no_grad()
-    def _generate_latents(self, inputs: Dict[str, torch.Tensor],
-                          **kwargs) -> torch.Tensor:
-        """`_trajectory` on the DiT with the effective weights."""
-        return self._with_weights(
-            lambda model: self._trajectory(model, inputs, **kwargs))
+    def _generate_latents(self, inputs: Dict[str, torch.Tensor], *,
+                          seeds: List[int], **kwargs) -> torch.Tensor:
+        """`trajectory` on the DiT with the effective weights, one
+        generator per row from `seeds`; under a mesh, a render command on
+        its ranks."""
+        if self.mesh is not None:
+            self._sync_mesh_weights()
+            return self.mesh.call(
+                _mesh_render, self._mesh_key,
+                self._mesh_plan.local_config(self.cfg), self.dtype,
+                {k: v.cpu() for k, v in inputs.items()}, list(seeds),
+                kwargs)
+        generators = [torch.Generator(self.device).manual_seed(int(s))
+                      for s in seeds]
+        return self._with_weights(lambda model: trajectory(
+            model, self.cfg, inputs, dtype=self.dtype,
+            generators=generators, **kwargs))
 
     def _schedule(self, *, shift: float, infer_steps: int, timesteps,
                   cover_noise_strength: float, audio_cover_strength: float):
@@ -717,7 +856,11 @@ class AceStepHandler:
         # ---- normalize request lists
         if isinstance(captions, str):
             captions = [captions]
-        B = effective_batch(batch_size or len(captions), self.tier)
+        B = B_req = effective_batch(batch_size or len(captions), self.tier)
+        if self.mesh is not None:
+            # the dp ranks split the batch evenly: pad with repeats of the
+            # request rows, trimmed from every output below
+            B = -(-B // self.mesh.dp) * self.mesh.dp
         if audio_duration and audio_duration > 0:
             audio_duration = effective_duration(audio_duration, self.tier)
         captions = (list(captions) * B)[:B]
@@ -960,10 +1103,13 @@ class AceStepHandler:
                 noise_arr = np.pad(noise_arr, ((0, 0),
                                                (0, T - noise_arr.shape[1]),
                                                (0, 0)))
+            noise_arr = noise_arr[:, :T]
+            if noise_arr.shape[0] not in (1, B):
+                # per-row noise cycles with the mesh's padding rows
+                reps = -(-B // noise_arr.shape[0])
+                noise_arr = np.tile(noise_arr, (reps, 1, 1))[:B]
             inputs["initial_noise"] = self._tensor(np.broadcast_to(
-                noise_arr[:, :T], (B, T, C)).copy())
-        generators = [torch.Generator(self.device).manual_seed(int(s))
-                      for s in seeds_list]
+                noise_arr, (B, T, C)).copy())
         time_costs["dispatch_prep_time_cost"] = time.time() - t0
 
         # ---- trajectory
@@ -973,7 +1119,7 @@ class AceStepHandler:
         with ProgressTicker(est, progress_callback or (lambda f: None)):
             x0 = self._generate_latents(
                 inputs, schedule=schedule, method=infer_method,
-                start_t=start_t, generators=generators,
+                start_t=start_t, seeds=seeds_list,
                 guidance_scale=guidance_scale, use_adg=use_adg,
                 cfg_interval=cfg_interval, cover_steps=cover_steps)
             # two scalars bring the trajectory to an end on the device
@@ -989,6 +1135,13 @@ class AceStepHandler:
         pred = x0
         if latent_shift != 0.0 or latent_rescale != 1.0:
             pred = pred * latent_rescale + latent_shift
+        if B_req < B:
+            # drop the mesh's padding rows before the decode
+            B = B_req
+            pred = pred[:B]
+            seeds_list = seeds_list[:B]
+            spans = spans[:B]
+            is_cover_rows = is_cover_rows[:B]
 
         t0 = time.time()
         audio = self.decode_latents(pred)[:, : T_req * VAE_HOP]

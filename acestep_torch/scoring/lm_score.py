@@ -8,7 +8,8 @@ LM, normalized per code token. Positive = the condition shaped the music.
 Scoring is one teacher-forced forward per prompt (no autoregressive loop),
 on the engine's model as it is: bf16, weight-only quantized (dequantized
 per module at use) or w8a8 (int8 products, and the int8 head copy when the
-untied head was dropped).
+untied head was dropped), and on every rank of a tensor-parallel engine
+(`LMEngine.sequence_logprob`).
 """
 
 from __future__ import annotations
@@ -47,7 +48,6 @@ def calculate_reward_score(llm_handler, audio_codes: str, caption: str = "",
     if engine is None:
         raise RuntimeError("LLM handler not initialized")
     tokenizer = llm_handler.tokenizer
-    cfg = llm_handler.cfg
 
     cond_prompt = llm_handler.build_formatted_prompt(caption, lyrics)
     uncond_prompt = llm_handler.build_formatted_prompt(negative_prompt, "")
@@ -60,10 +60,8 @@ def calculate_reward_score(llm_handler, audio_codes: str, caption: str = "",
     cond_full = np.asarray(list(cond_ids) + list(code_ids), np.int64)
     uncond_full = np.asarray(list(uncond_ids) + list(code_ids), np.int64)
 
-    cond_lp = sequence_logprob(engine.model, cfg, cond_full, len(cond_ids),
-                               dtype=engine.dtype)
-    uncond_lp = sequence_logprob(engine.model, cfg, uncond_full,
-                                 len(uncond_ids), dtype=engine.dtype)
+    cond_lp = engine.sequence_logprob(cond_full, len(cond_ids))
+    uncond_lp = engine.sequence_logprob(uncond_full, len(uncond_ids))
     pmi = cond_lp - uncond_lp
     per_code = pmi / n_codes
     score = float(1.0 / (1.0 + np.exp(-4.0 * per_code)))  # squash to (0,1)

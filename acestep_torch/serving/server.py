@@ -1674,13 +1674,18 @@ def build_parser():
     parser.add_argument("--quantization", default=None,
                         choices=[None, "int8"])
     parser.add_argument("--mesh", default=os.environ.get("ACESTEP_MESH"),
-                        help="multi-device DiT mesh as 'DPxTP' (not ported "
-                             "yet: anything above one device raises; env: "
+                        help="multi-device DiT mesh as 'DPxTP' (e.g. '4x2') "
+                             "or a device count for pure data parallel: one "
+                             "process per device, this one rank 0 "
+                             "(torch.distributed, nccl on cards, gloo with "
+                             "--device cpu); default one device (env: "
                              "ACESTEP_MESH)")
     parser.add_argument("--lm-tensor-parallel", type=int,
                         default=int(os.environ.get("ACESTEP_LM_TP", "1")),
                         help="tensor-parallel degree for the LM planner "
-                             "(not ported yet: above 1 raises)")
+                             "(nano-vllm's tensor_parallel_size); it takes "
+                             "the first ranks of --mesh's processes when "
+                             "both are given")
     parser.add_argument("--no-init", action="store_true",
                         default=_env_bool("ACESTEP_NO_INIT"),
                         help="bind the port immediately and load models "
@@ -1696,22 +1701,47 @@ def build_parser():
     return parser
 
 
+def load_planner(args, dtype, device):
+    """The LM planner the parsed server `args` ask for (`--lm-checkpoint-
+    dir`, or `--lm-size` through the tier's downgrade ladder, with
+    `--lm-quantization`, `--lm-kv-quant` and `--lm-tensor-parallel`), or
+    None when they ask for none."""
+    from acestep_torch.llm.handler import LLMHandler
+
+    kvq = {"auto": None, "on": True, "off": False}[args.lm_kv_quant]
+    if args.lm_checkpoint_dir:
+        llm = LLMHandler(dtype=dtype, device=device)
+        llm.initialize(checkpoint_dir=args.lm_checkpoint_dir,
+                       quantization=args.lm_quantization,
+                       tensor_parallel=args.lm_tensor_parallel,
+                       kv_quant=kvq)
+        return llm
+    if not args.lm_size:
+        return None
+    llm = LLMHandler(dtype=dtype, device=device)
+    info = llm.initialize_auto(
+        size=args.lm_size,
+        checkpoint_root=args.lm_checkpoint_root,
+        quantization=args.lm_quantization,
+        tensor_parallel=args.lm_tensor_parallel,
+        kv_quant=kvq)
+    print(f"[acestep_torch] LM planner: {info['size']}"
+          f" quant={info['quantization']}"
+          f"{' (downgraded)' if info['downgraded'] else ''}")
+    return llm
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     """CLI launcher: initialize real handlers and serve forever. Runs on
     the CUDA device unless `--device cpu`; without a CUDA device and
     without that flag it raises."""
-    from acestep_torch.llm.handler import LLMHandler
     from acestep_torch.parallel import parse_mesh_spec
     from acestep_torch.pipeline.handler import AceStepHandler, resolve_device
 
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
-    if parse_mesh_spec(args.mesh) or args.lm_tensor_parallel > 1:
-        raise NotImplementedError(
-            "the device mesh and the tensor-parallel LM (--mesh, "
-            "--lm-tensor-parallel) are not ported yet: they come with "
-            "ROADMAP item 15 of the PyTorch port (acestep_tpu has them)")
+    mesh_spec = parse_mesh_spec(args.mesh)
 
     # ACESTEP_LM_MODEL_PATH supplies the LM when no CLI flag does
     if not args.lm_checkpoint_dir and not args.lm_size:
@@ -1822,29 +1852,19 @@ def main(argv: Optional[List[str]] = None) -> None:
                                    text_embedder=shared_embedder)
             shared_vae = dit.vae             # one VAE across variants
             shared_embedder = dit.text_embedder
+            if mesh_spec:
+                dit.enable_mesh(dp=mesh_spec[0], tp=mesh_spec[1])
+        if mesh_spec:
+            print(f"[acestep_torch] mesh enabled: dp={mesh_spec[0]} x "
+                  f"tp={mesh_spec[1]} over {mesh_spec[0] * mesh_spec[1]} "
+                  "devices")
         if args.warmup and not args.no_init:   # lazy startup skips warmup
             durations = [float(d) for d in args.warmup.split(",") if d]
             print(f"[acestep_torch] warming {durations} x {list(handlers)}...")
             for name, dit in handlers.items():
                 print(f"[acestep_torch] warmup {name}: "
                       f"{dit.warmup(durations)}")
-        llm = None
-        kvq = {"auto": None, "on": True, "off": False}[args.lm_kv_quant]
-        if args.lm_checkpoint_dir:
-            llm = LLMHandler(dtype=dtype, device=device)
-            llm.initialize(checkpoint_dir=args.lm_checkpoint_dir,
-                           quantization=args.lm_quantization,
-                           kv_quant=kvq)
-        elif args.lm_size:
-            llm = LLMHandler(dtype=dtype, device=device)
-            info = llm.initialize_auto(
-                size=args.lm_size,
-                checkpoint_root=args.lm_checkpoint_root,
-                quantization=args.lm_quantization,
-                kv_quant=kvq)
-            print(f"[acestep_torch] LM planner: {info['size']}"
-                  f" quant={info['quantization']}"
-                  f"{' (downgraded)' if info['downgraded'] else ''}")
+        llm = load_planner(args, dtype, device)
         state.llm_handler = llm
         state.dataset.llm = llm      # the builder labels with the planner
 
@@ -1875,6 +1895,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     finally:
         state.shutdown()
         server.server_close()
+        # stop the mesh's follower processes
+        for dit in handlers.values():
+            dit.release_mesh()
+        if state.llm_handler is not None:
+            state.llm_handler.release()
 
 
 if __name__ == "__main__":

@@ -102,6 +102,18 @@ Between phases 5 and 6, on phase 5's full-width handler:
   /v1/dataset/status, then the session routes scan -> auto_label_async
   -> save -> preprocess_async, then 1 LoRA step at full width over
   /v1/training/start on the built tensors; stage seconds per song.
+- mesh (after dataset, on the same handler and the 4B planner): a 1-rank
+  NCCL world (`enable_mesh()` with its defaults on the one card) whose
+  60 s render must equal the unsharded one bit for bit; then a world of
+  two ranks sharing the card
+  over gloo (NCCL refuses two ranks on one device): tp=2 (a 60 s render
+  within TOL_MESH of the unsharded one, K1 launches of each rank, K1 held
+  to its plain version at the per-rank heads (1, 750, 8/4)), dp=2 (batch
+  3 padded to 4 and trimmed, within TOL_MESH), and the planner at tp=2
+  as the server builds it from `--lm-tensor-parallel 2` (teacher-forced
+  logits against tp=1 within TOL_MESH_LM, a 60 s thinking request over
+  REST); each world's start-up and render walls, labelled
+  as gloo ranks sharing one H100.
 - lrc: a turbo 60 s request with lyrics and want_lrc=True at 24 layers
   (DEFAULT_CAPTURE: the capture pass runs 7 layers through K1): LRC
   lines, the alignment score inside (0, 1), `auto_lrc_time`; the tiny
@@ -121,9 +133,10 @@ estimate, card against CPU.
 
 The launch counts of the kernel table are those of phases 5 and 6 with
 their `tasks`, `adapter`, `rest_training`, `full_training` and `estimate`
-parts, the checkpoint render, the measured thinking requests, the serving
-and dataset phases, the quant phase's measured renders and the lrc
-request. The last two lines are the kernel
+parts, the checkpoint render, the measured thinking requests, the serving,
+dataset and mesh phases (the mesh's follower ranks' launches summed in,
+as their command replies return them), the quant phase's measured renders
+and the lrc request. The last two lines are the kernel
 table and {"ok": true, "device": ...}.
 """
 
@@ -343,15 +356,15 @@ def phase_build():
          nvcc_seconds=_build.build_seconds, ptxas=ptxas)
 
 
-def _k1_case(B, L, window, seed, host=False):
-    """K1 against its plain version; with `host`, also its host
-    microseconds per call (`k1_host_us`)."""
+def _k1_case(B, L, window, seed, host=False, heads=(16, 8)):
+    """K1 against its plain version at `heads` (query, KV) heads; with
+    `host`, also its host microseconds per call (`k1_host_us`)."""
     import torch
     import torch.nn.functional as F
 
     from acestep_torch.ops import flash_attention as fa
 
-    Hq, Hkv, D = 16, 8, 128
+    (Hq, Hkv), D = heads, 128
     g = torch.Generator("cuda").manual_seed(seed)
     q, k, v = (torch.randn((B, L, h, D), generator=g, device="cuda")
                .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
@@ -1583,6 +1596,273 @@ def phase_planner(turbo):
     launches = {"K1": fa.launches, "K4": sc.launches, "K2": 0, "K3": 0}
     emit(phase="planner", seconds=time.time() - t0, launches=launches)
     return launches, llm
+
+
+# ------------------------------------------------------------------
+# mesh: the DiT's dp x tp mesh and the tensor-parallel planner
+# ------------------------------------------------------------------
+
+# The tp=2 and dp=2 renders (two ranks sharing the one card over gloo)
+# against the unsharded render of the same seeds: relative L2 of the
+# latents. tp sums each row-parallel product's bf16 halves over the group
+# where the unsharded product sums in one pass; dp renders a row in
+# another batch. The fused group's rows read ~1% against solo renders.
+TOL_MESH = 2e-2
+# The tp=2 planner's teacher-forced logits against tp=1's (both bf16 on
+# the card, same weights) over 36 layers: relative to the largest tp=1
+# logit (the card-vs-CPU limit of `_lm_reference`).
+TOL_MESH_LM = 5e-2
+MESH_LYRICS = "[verse]\nsplit across the ranks\n[chorus]\nall reduce"
+
+
+def _rel_l2(got, want) -> float:
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _mesh_render(handler, world_launches, batch: int, label: str):
+    """A 60 s text2music render of `batch` rows (seeds 41..) through the
+    handler: (result, wall s, rank 0's K1/K4 launches, every rank's K1
+    launches inside mesh commands)."""
+    import numpy as np
+
+    captions = ["cinematic synthwave, gated drums", "acoustic folk duet",
+                "dub techno, deep chords"][:batch]
+    before = world_launches() if world_launches else None
+    res, k1, k4, wall, peak = _counted(lambda: handler.generate_music(
+        captions, [MESH_LYRICS] * batch, batch_size=batch,
+        seeds=list(range(41, 41 + batch)), audio_duration=60.0,
+        normalize=False))
+    if res.pred_latents.shape != (batch, 1500, 64) or len(res.audios) != \
+            batch or not np.isfinite(res.pred_latents).all():
+        raise AssertionError(f"mesh {label}: latents "
+                             f"{res.pred_latents.shape}, {len(res.audios)} "
+                             "audios")
+    _check_audio(label, res.audios, 1500 * handler.vae_cfg.hop_length)
+    ranks = None
+    if before is not None:
+        after = world_launches()
+        ranks = [a - b for a, b in zip(after["K1"], before["K1"])]
+    return res, wall, k1, k4, ranks, peak
+
+
+def phase_mesh(turbo, llm):
+    """The multi-device slice on the one card (phase 5's turbo handler at
+    full width, the planner phase's 4B planner at bf16):
+
+    1. `enable_mesh()` with its defaults on the one card, the handler on
+       the bare `cuda` device as the server makes it: a 1-rank NCCL world
+       whose 60 s render is bit-equal to the unsharded render;
+    2. a world of two ranks sharing cuda:0 over gloo (NCCL refuses two
+       ranks on one card): tp=2, a 60 s batch-1 render against the
+       unsharded one (TOL_MESH), K1 launches of each rank, and K1 held to
+       its plain version at the per-rank heads (1, 750, 8/4);
+    3. dp=2 on the same world: batch 3, padded to 4 and trimmed back to 3,
+       against the unsharded batch 3 (TOL_MESH);
+    4. the planner at tp=2 on the same world, built by the server's own
+       wiring from `--lm-size auto --lm-tensor-parallel 2` (the tier's 4B,
+       seed 0: the planner phase's weights): teacher-forced logits against
+       tp=1 (TOL_MESH_LM), then a 60 s thinking request through the REST
+       server with that planner (wall, tokens/s).
+
+    Walls and start-ups (spawn, weight transfer) are of ranks sharing one
+    H100 over gloo, not of several cards. Returns the launches of the
+    renders and the request, every rank's summed."""
+    import numpy as np
+    import torch
+
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+    from acestep_torch.parallel import make_mesh
+    from acestep_torch.serving.server import (
+        AppState, build_parser, load_planner,
+    )
+
+    t_phase = time.time()
+    launches = {"K1": 0, "K4": 0, "K2": 0, "K3": 0}
+
+    def count(k1, k4, ranks):
+        launches["K1"] += k1 + (sum(ranks[1:]) if ranks else 0)
+        launches["K4"] += k4
+
+    base1, wall1, k1, k4, _, _ = _mesh_render(turbo, None, 1, "unsharded")
+    base3, wall3, _, _, _, _ = _mesh_render(turbo, None, 3, "unsharded b3")
+    emit(phase="mesh", part="unsharded", wall_b1_s=wall1, wall_b3_s=wall3,
+         k1_launches=k1, k4_launches=k4)
+
+    # -- 1: the defaults on one card: one rank, the default backend
+    t0 = time.time()
+    turbo.enable_mesh()
+    start = time.time() - t0
+    try:
+        backend = turbo.mesh.backend
+        if (turbo.mesh.dp, turbo.mesh.tp) != (1, 1) or \
+                turbo.mesh.devices != [torch.device("cuda", 0)]:
+            raise AssertionError(f"mesh defaults on one card: "
+                                 f"{turbo.mesh.describe()}")
+        res, wall, k1, k4, ranks, _ = _mesh_render(
+            turbo, turbo.mesh.launches, 1, "nccl 1x1")
+        count(k1, k4, ranks)
+    finally:
+        turbo.release_mesh()
+    equal = bool(np.array_equal(res.pred_latents, base1.pred_latents))
+    emit(phase="mesh", part="nccl_1x1", call="enable_mesh()",
+         handler_device=str(turbo.device), backend=backend, startup_s=start,
+         wall_s=wall, bit_equal=equal, k1_launches=ranks,
+         max_abs_diff=float(np.abs(res.pred_latents
+                                   - base1.pred_latents).max()))
+    if backend != "nccl" or not equal:
+        raise AssertionError(f"mesh 1x1 ({backend}): the render differs "
+                             "from the unsharded one")
+
+    # -- 2-4: two ranks on cuda:0 over gloo; the anchor mesh keeps the
+    # world up between the handler's and the planner's meshes
+    t0 = time.time()
+    anchor = make_mesh(2, 1, devices=["cuda:0", "cuda:0"], backend="gloo")
+    spawn = time.time() - t0
+    lm2 = None
+    try:
+        # tp=2
+        t0 = time.time()
+        turbo.enable_mesh(dp=1, tp=2)
+        start = time.time() - t0
+        try:
+            res, wall, k1, k4, ranks, peak = _mesh_render(
+                turbo, anchor.launches, 1, "gloo tp=2")
+            count(k1, k4, ranks)
+        finally:
+            turbo.release_mesh()
+        rel = _rel_l2(res.pred_latents, base1.pred_latents)
+        emit(phase="mesh", part="gloo_tp2", spawn_s=spawn,
+             startup_s=start, wall_s=wall, unsharded_wall_s=wall1,
+             latents_rel_l2=rel, tol=TOL_MESH, k1_launches_per_rank=ranks,
+             k4_launches=k4, max_memory_allocated=peak,
+             note="gloo, ranks sharing one H100")
+        need = turbo.cfg.num_hidden_layers * 8
+        if not rel < TOL_MESH or min(ranks) < need:
+            raise AssertionError(f"mesh tp=2: latents rel L2 {rel:.3e} "
+                                 f"(tol {TOL_MESH}), K1 per rank {ranks} "
+                                 f"(need >= {need} each)")
+        rank_heads = _k1_case(1, 750, None, 113, heads=(8, 4))
+        emit(phase="mesh", part="k1_rank_heads", **rank_heads)
+
+        # dp=2, batch 3 padded to 4
+        t0 = time.time()
+        turbo.enable_mesh(dp=2, tp=1)
+        start = time.time() - t0
+        try:
+            res, wall, k1, k4, ranks, peak = _mesh_render(
+                turbo, anchor.launches, 3, "gloo dp=2")
+            count(k1, k4, ranks)
+        finally:
+            turbo.release_mesh()
+        rel = _rel_l2(res.pred_latents, base3.pred_latents)
+        emit(phase="mesh", part="gloo_dp2", startup_s=start, wall_s=wall,
+             unsharded_wall_s=wall3, latents_rel_l2=rel, tol=TOL_MESH,
+             rows=res.pred_latents.shape[0], k1_launches_per_rank=ranks,
+             max_memory_allocated=peak, note="gloo, ranks sharing one H100")
+        if not rel < TOL_MESH or res.seeds != [41, 42, 43]:
+            raise AssertionError(f"mesh dp=2: latents rel L2 {rel:.3e} "
+                                 f"(tol {TOL_MESH}), seeds {res.seeds}")
+
+        # the planner at tp=2 as the server builds it: the tier's 4B drawn
+        # from seed 0 on the bare `cuda` device, as the planner phase drew
+        # `llm`
+        t0 = time.time()
+        args = build_parser().parse_args(
+            ["--lm-size", "auto", "--lm-tensor-parallel", "2"])
+        lm2 = load_planner(args, torch.bfloat16, llm.device)
+        start = time.time() - t0
+        half = lm2.engine.model.embed_tokens.shape[0]
+        same = bool(torch.equal(lm2.engine.model.embed_tokens,
+                                llm.engine.model.embed_tokens[:half]))
+        if lm2.engine.mesh.tp != 2 or lm2.cfg != llm.cfg or not same:
+            raise AssertionError(
+                f"mesh planner from --lm-tensor-parallel 2: tp "
+                f"{lm2.engine.mesh.tp}, the planner phase's weights {same}")
+        tok = llm.tokenizer
+        prompt = ("<|im_start|>user\n# Caption\nwarm synthwave\n\n# Lyric\n"
+                  "la la<|im_end|>\n<|im_start|>assistant\n")
+        forced = tok.encode("<think>\nbpm: 118\ncaption: neon nights\n")[:32]
+        forced += [tok.audio_code_id(i * 997)
+                   for i in range(32 - len(forced))]
+        llm.engine._cross_prefix = lm2.engine._cross_prefix = None
+        t0 = time.time()
+        got = _teacher_forced(lm2.engine, prompt, forced)
+        tf_s = time.time() - t0
+        want = _teacher_forced(llm.engine, prompt, forced)
+        err = float((got - want).abs().max() / want.abs().max())
+        emit(phase="mesh", part="planner_tp2_logits", startup_s=start,
+             argv="--lm-size auto --lm-tensor-parallel 2",
+             embed_shard_equal=same,
+             logits_rel_err=err, tol=TOL_MESH_LM, positions=len(forced) + 1,
+             teacher_forced_s=tf_s, graph=llm.engine.cuda_graphs,
+             tp2_graph=lm2.engine.cuda_graphs)
+        if not err < TOL_MESH_LM:
+            raise AssertionError(f"mesh planner tp=2: logits rel err "
+                                 f"{err:.3e} (tol {TOL_MESH_LM})")
+
+        # a thinking request over REST with the tp=2 planner
+        eng = lm2.engine
+        timing = {}
+
+        def timed(name, fn):
+            def wrapper(*a, **kw):
+                t = time.time()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                timing[name] = (time.time() - t, out)
+                return out
+            return wrapper
+
+        with tempfile.TemporaryDirectory() as out_dir, \
+                mock.patch.object(eng, "generate_cot_device",
+                                  timed("cot", eng.generate_cot_device)), \
+                mock.patch.object(eng, "generate_codes",
+                                  timed("codes", eng.generate_codes)):
+            state = AppState({SERVED_MODEL: turbo}, lm2, output_dir=out_dir)
+            server, port = _serve(state)
+            try:
+                body = dict(prompt="melodic house, airy pads",
+                            lyrics=MESH_LYRICS, audio_duration=60, seed=21,
+                            use_random_seed=False, thinking=True,
+                            audio_format="wav")
+                before = anchor.launches()
+                k1, k4 = fa.launches, sc.launches
+                t0 = time.time()
+                entry = _wait_task(port, _release(port, body))[0]
+                wall = time.time() - t0
+                ranks = [a - b for a, b in zip(anchor.launches()["K1"],
+                                               before["K1"])]
+            finally:
+                state.shutdown()
+                server.shutdown()
+                server.server_close()
+        costs = entry["time_costs"]
+        cot_s, cot_ids = timing["cot"][0], timing["cot"][1][0]
+        codes_s, codes = timing["codes"][0], timing["codes"][1][0]
+        k1, k4 = fa.launches - k1, sc.launches - k4
+        count(k1, k4, ranks)
+        emit(phase="mesh", part="thinking_rest_tp2", duration=60.0,
+             wall_s=wall, lm_time_cost=costs.get("lm_time_cost"),
+             cot_tokens=len(cot_ids), cot_s=cot_s,
+             cot_tokens_per_s=len(cot_ids) / cot_s, codes=len(codes),
+             codes_s=codes_s, codes_tokens_per_s=len(codes) / codes_s,
+             planner_k1_per_rank=ranks, k1_launches=k1, k4_launches=k4,
+             metas=entry.get("metas"), time_costs=costs,
+             note="gloo, ranks sharing one H100; eager decode under tp")
+        if len(codes) != 300 or not costs.get("lm_time_cost") or k1 < 8 * \
+                turbo.cfg.num_hidden_layers:
+            raise AssertionError(f"mesh thinking tp=2: {len(codes)} codes, "
+                                 f"K1 {k1}, costs {costs}")
+    finally:
+        if lm2 is not None:
+            lm2.release()
+        anchor.close()
+    emit(phase="mesh", seconds=time.time() - t_phase, launches=launches)
+    return launches
 
 
 # ------------------------------------------------------------------
@@ -3074,6 +3354,7 @@ def main() -> None:
     planner, llm = phase_planner(handler)
     serving = phase_serving(handler, llm)
     dataset = phase_dataset(handler, llm)
+    mesh = phase_mesh(handler, llm)
     del llm
     gc.collect()
     torch.cuda.empty_cache()
@@ -3085,9 +3366,9 @@ def main() -> None:
     training, adapter, rest_training, full, estimate = \
         phase_training(k4_per_song)
     launches = {k: text2music[k] + tasks[k] + checkpoint[k] + planner[k]
-                + serving[k] + dataset[k] + quant[k] + lrc[k] + training[k]
-                + adapter[k] + rest_training[k] + full[k] + estimate[k]
-                for k in training}
+                + serving[k] + dataset[k] + mesh[k] + quant[k] + lrc[k]
+                + training[k] + adapter[k] + rest_training[k] + full[k]
+                + estimate[k] for k in training}
 
     def row(name, source, replaces, cases, rep, n):
         return {"name": name, "route": "cuda", "source": source,

@@ -5,6 +5,8 @@ writes a flac, `--export-codes` and `--understand` run on a seeded song.
 Without a CUDA device and without `--device cpu` the CLI and the server
 raise. Exact equality throughout."""
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -98,12 +100,77 @@ def test_understand(tmp_path, song, capsys):
     assert "-- Understanding --" in capsys.readouterr().out
 
 
-def test_mesh_and_lm_tensor_parallel_raise_by_name(tmp_path):
-    for extra in (["--mesh", "2x1"], ["--lm-tensor-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            tcli.main(_args(tmp_path, "--once", *extra))
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            tserver.main(["--device", "cpu", "--tiny", *extra])
+def _serve_once(tmp_path, *extra):
+    """`server.main` at the tiny size with a seeded tiny planner behind
+    `--lm-size`; in place of serving, one thinking request through the
+    facade on the state it built (greedy planner). Returns the result."""
+    from acestep_torch import inference as tinf
+    from acestep_torch.config import LMConfig
+    from acestep_torch.llm.tokenizer import SimpleTokenizer
+
+    def tiny(cls, size, audio_vocab=64_000):
+        return cls.tiny(vocab_size=SimpleTokenizer(
+            num_audio_codes=audio_vocab).vocab_size)
+
+    out = {}
+
+    def fake_server(state, host, port):
+        def serve_forever():
+            out["result"] = tinf.generate_music(
+                state.dit_handlers[state.default_model], state.llm_handler,
+                tinf.GenerationParams(caption="lofi beat", lyrics="la",
+                                      duration=1.0, seed=7,
+                                      lm_temperature=0.0),
+                tinf.GenerationConfig(output_dir=str(tmp_path / "srv")))
+            out["mesh"] = state.dit_handlers[state.default_model].mesh
+            out["lm_mesh"] = state.llm_handler.mesh
+            raise KeyboardInterrupt
+        return mock.Mock(serve_forever=serve_forever)
+
+    with mock.patch.object(LMConfig, "for_size", classmethod(tiny)), \
+            mock.patch.object(tserver, "create_server", fake_server):
+        tserver.main(["--device", "cpu", "--tiny", "--warmup", "",
+                      "--lm-size", "0.6B", "--output-dir",
+                      str(tmp_path / "out"), *extra])
+    # the server's shutdown stopped the meshes it started
+    for m in (out["mesh"], out["lm_mesh"]):
+        assert m is None or m.closed
+    return out
+
+
+def _flac(path):
+    with open(path, "rb") as f:
+        return decode_flac(f.read())[0]
+
+
+def test_mesh_and_lm_tensor_parallel_raise_by_name(tmp_path, capsys):
+    """The CLI's `--mesh 2x1` and the server's `--mesh 2x2
+    --lm-tensor-parallel 2` (CPU ranks, gloo) render what they render
+    without them: the same codes and, the batch padded to the mesh's dp
+    and trimmed, the same audio within an int16 step. `--mesh 4x` still
+    raises."""
+    from torch_mesh_helpers import store_under
+
+    once = ["--once", "--no-think", "--duration", "1", "--seed", "3",
+            "--caption", "lofi beat"]
+    with store_under(tmp_path):
+        assert tcli.main(_args(tmp_path, *once)) == 0
+        plain = capsys.readouterr().out.strip().splitlines()[-1]
+        assert tcli.main(_args(tmp_path, *once, "--mesh", "2x1")) == 0
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert "mesh enabled: dp=2 x tp=1" in lines
+        np.testing.assert_allclose(_flac(lines[-1]), _flac(plain), atol=2)
+
+        want = _serve_once(tmp_path)["result"]
+        got = _serve_once(tmp_path, "--mesh", "2x2",
+                          "--lm-tensor-parallel", "2")
+    got = got["result"]
+    assert got.success and want.success, (got.error, want.error)
+    codes = want.extra_outputs["audio_codes"]
+    assert codes.count("<|audio_code_") and \
+        got.extra_outputs["audio_codes"] == codes
+    np.testing.assert_allclose(got.audios[0]["audio"],
+                               want.audios[0]["audio"], atol=2e-4)
     with pytest.raises(ValueError, match="bad mesh spec"):
         tcli.main(_args(tmp_path, "--once", "--mesh", "4x"))
 

@@ -813,3 +813,62 @@ def test_dataset_encode_launches_k4_three_times_a_song(cuda_device,
     assert sc.launches == before
     lat = np.load(next((tmp_path / "ds" / "latents").glob("*.npy")))
     assert lat.shape == (50, 64) and np.isfinite(lat).all()
+
+
+def test_tp2_gloo_world_on_one_card_matches_unsharded(cuda_device,
+                                                      tmp_path):
+    """A tp=2 mesh of two ranks sharing the card (gloo; NCCL refuses two
+    ranks on one device) at the tiny size with 128-wide heads: each rank
+    runs K1 at 2 query / 1 KV heads, and the render's latents are within
+    2e-2 (relative L2, bf16 halves summed over the group) of the unsharded
+    render of the same seed; the follower's K1 launches come back in the
+    command replies."""
+    import numpy as np
+
+    from acestep_torch.parallel import make_mesh
+    from torch_mesh_helpers import store_under
+
+    h = _tiny_service(cuda_device)
+    kw = dict(audio_duration=2, seeds=[3], normalize=False)
+    want = h.generate_music("x", "la", **kw)
+    with store_under(tmp_path):
+        world = make_mesh(2, 1, devices=[cuda_device] * 2, backend="gloo")
+    try:
+        h.enable_mesh(dp=1, tp=2)
+        before = h.mesh.launches()["K1"]
+        got = h.generate_music("x", "la", **kw)
+        ranks = [a - b for a, b in zip(h.mesh.launches()["K1"], before)]
+    finally:
+        h.release_mesh()
+        world.close()
+    rel = np.linalg.norm(got.pred_latents - want.pred_latents) / \
+        np.linalg.norm(want.pred_latents)
+    assert rel < 2e-2, rel
+    need = h.cfg.num_hidden_layers * 8
+    assert min(ranks) >= need, ranks
+
+
+def test_default_mesh_counts_each_card_once(cuda_device, tmp_path):
+    """`enable_mesh()` with its defaults, on a handler on the bare `cuda`
+    device (the default of the server, the CLI and the facades): one NCCL
+    rank on each visible card, so one card gives a 1-rank mesh whose render
+    equals the unsharded render bit for bit."""
+    import numpy as np
+
+    from torch_mesh_helpers import store_under
+
+    h = _tiny_service(cuda_device)
+    kw = dict(audio_duration=2, seeds=[3], normalize=False)
+    want = h.generate_music("x", "la", **kw)
+    cards = torch.cuda.device_count()
+    with store_under(tmp_path):
+        h.enable_mesh()
+    try:
+        assert (h.mesh.dp, h.mesh.tp, h.mesh.backend) == (cards, 1, "nccl")
+        assert h.mesh.devices == [torch.device("cuda", i)
+                                  for i in range(cards)]
+        got = h.generate_music("x", "la", **kw)
+    finally:
+        h.release_mesh()
+    if cards == 1:
+        np.testing.assert_array_equal(got.pred_latents, want.pred_latents)

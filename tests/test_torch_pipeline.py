@@ -12,6 +12,7 @@ side rounds its own float audio to that grid.
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +23,7 @@ from acestep_tpu.pipeline.handler import AceStepHandler as JaxHandler
 from acestep_torch import inference as tinf
 from acestep_torch.llm.handler import LLMHandler
 from acestep_torch.pipeline.handler import AceStepHandler
+from torch_mesh_helpers import cpu_world
 from torch_parity import highest, np_tree, port_cfg, randn, tiny_dit_cfg, tiny_vae_cfg
 
 GEOM = dict(frame_bucket=20, min_frames=20, refer_frames=10)
@@ -92,6 +94,33 @@ def test_seeded_noise_is_deterministic(handlers):
     assert not np.allclose(a.pred_latents, c.pred_latents)
 
 
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """4 CPU ranks (gloo) for the mesh cases, started on first use."""
+    yield from cpu_world(tmp_path_factory.mktemp("mesh"))
+
+
+def _jax_planner(**kw):
+    from acestep_tpu.llm.handler import LLMHandler as JaxLLM
+
+    jh = JaxLLM(dtype=jnp.float32)
+    jh.initialize(seed=0, **kw)
+    return jh
+
+
+def _greedy_codes(engine):
+    return engine.generate_codes(["make music"], n_codes=10, seed=5,
+                                 temperature=0.0)
+
+
+def _tiny_for_size(cls, size, audio_vocab=64_000):
+    """LMConfig.for_size at the tiny test geometry (same vocabulary)."""
+    from acestep_torch.llm.tokenizer import SimpleTokenizer
+
+    return cls.tiny(vocab_size=SimpleTokenizer(
+        num_audio_codes=audio_vocab).vocab_size)
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(lm_tensor_parallel=2, lm_quantization="w8a8"),
     dict(mesh=True),
@@ -100,29 +129,94 @@ def test_seeded_noise_is_deterministic(handlers):
     dict(lm_tensor_parallel=2),
     dict(lm_tensor_parallel=4, lm_quantization="int4"),
 ])
-def test_later_slices_raise_not_implemented(handlers, kwargs, tmp_path):
-    """What later slices bring raises NotImplementedError by name: the
-    tensor-parallel planner (quantized or not, also through
-    `initialize_auto`) and the device mesh (the DiT handler's
-    `enable_mesh`, the engine's `mesh=`). Quantization and LRC, which
-    raised here before they were ported, are held against JAX in
-    test_torch_quant.py and test_torch_scoring.py."""
-    _, th = handlers
-    with pytest.raises(NotImplementedError, match="not ported"):
-        if "mesh" in kwargs:
-            th.enable_mesh(dp=1, tp=2)
-        elif "engine_mesh" in kwargs:
-            from acestep_torch.llm.generator import LMEngine
-            llm = LLMHandler(dtype=torch.float32, device="cpu")
-            llm.initialize(num_fallback_codes=8)
-            LMEngine(llm.engine.model, llm.cfg, llm.tokenizer, mesh=object())
-        elif "auto_tensor_parallel" in kwargs:
-            LLMHandler(dtype=torch.float32, device="cpu").initialize_auto(
-                size="0.6B", tensor_parallel=kwargs["auto_tensor_parallel"])
-        else:
-            LLMHandler(dtype=torch.float32, device="cpu").initialize(
-                quantization=kwargs.get("lm_quantization"),
-                tensor_parallel=kwargs["lm_tensor_parallel"])
+def test_later_slices_raise_not_implemented(handlers, kwargs, world):
+    """What these cases once showed raising NotImplementedError now runs
+    and is held to JAX: the tensor-parallel planner (plain, w8a8, int4 at
+    tp=4), the engine's `mesh=`, `initialize_auto(tensor_parallel=)` and
+    the DiT handler's `enable_mesh`. Planners decode greedily (their ids
+    must equal JAX's tp=1 ids from the same weights; under
+    `initialize_auto` the ids of JAX's `initialize_auto` engine at the
+    same tp, whose weights the port's takes); the DiT renders under tp=2
+    with JAX's `initial_noise` and must match JAX's latents."""
+    from acestep_torch.llm.generator import LMEngine
+    from acestep_torch.parallel import make_mesh
+
+    jh, th = handlers
+    if "mesh" in kwargs:
+        T = 20
+        noise = randn(4, 1, T, 64)
+        kw = dict(audio_duration=0.8, seeds=[3], normalize=False,
+                  initial_noise=noise)
+        with highest():
+            want = jh.generate_music("tp song", "la", **kw)
+        th.enable_mesh(dp=1, tp=2)
+        try:
+            got = th.generate_music("tp song", "la", **kw)
+        finally:
+            th.release_mesh()
+        np.testing.assert_allclose(got.pred_latents, want.pred_latents,
+                                   rtol=2e-4, atol=2e-4)
+    elif "auto_tensor_parallel" in kwargs:
+        from acestep_tpu.config import LMConfig as JaxLMConfig
+        from acestep_tpu.llm.handler import LLMHandler as JaxLLM
+        from acestep_torch.config import LMConfig
+
+        tp = kwargs["auto_tensor_parallel"]
+        jauto = JaxLLM(dtype=jnp.float32)
+        init = LLMHandler.initialize
+
+        def with_jax_weights(self, **kw):
+            # the JAX engine's seeded weights in place of the port's draw
+            return init(self, params=np_tree(jauto.engine.params), **kw)
+
+        with mock.patch.object(LMConfig, "for_size",
+                               classmethod(_tiny_for_size)), \
+                mock.patch.object(JaxLMConfig, "for_size",
+                                  classmethod(_tiny_for_size)):
+            want = jauto.initialize_auto(size="0.6B", tensor_parallel=tp)
+            with mock.patch.object(LLMHandler, "initialize",
+                                   with_jax_weights):
+                one = LLMHandler(dtype=torch.float32, device="cpu")
+                one.initialize_auto(size="0.6B")
+                got = LLMHandler(dtype=torch.float32, device="cpu")
+                picked = got.initialize_auto(size="0.6B", tensor_parallel=tp)
+        try:
+            assert picked == want
+            assert got.engine.mesh.tp == tp
+            with highest():
+                codes = _greedy_codes(jauto.engine)
+            assert _greedy_codes(got.engine) == _greedy_codes(one.engine) \
+                == codes
+        finally:
+            got.release()
+    else:
+        mode = kwargs.get("lm_quantization")
+        codes = 65 if mode == "w8a8" else 64
+        jlm = _jax_planner(num_fallback_codes=codes, quantization=mode)
+        plain = _jax_planner(num_fallback_codes=codes) if mode else jlm
+        llm = LLMHandler(dtype=torch.float32, device="cpu")
+        tp = kwargs.get("lm_tensor_parallel", 2)
+        with highest():
+            want = _greedy_codes(jlm.engine)
+        if "engine_mesh" in kwargs:
+            llm.initialize(cfg=port_cfg(jlm.cfg), num_fallback_codes=codes,
+                           params=np_tree(plain.engine.params))
+            mesh = make_mesh(1, tp)
+            try:
+                engine = LMEngine(llm.engine.model, llm.cfg, llm.tokenizer,
+                                  dtype=torch.float32, mesh=mesh)
+                assert _greedy_codes(engine) == want
+            finally:
+                mesh.close()
+            return
+        llm.initialize(cfg=port_cfg(jlm.cfg), num_fallback_codes=codes,
+                       params=np_tree(plain.engine.params), quantization=mode,
+                       tensor_parallel=tp)
+        try:
+            assert llm.engine.mesh.tp == tp
+            assert _greedy_codes(llm.engine) == want
+        finally:
+            llm.release()
 
 
 def test_facade_generate_music(handlers, tmp_path):
