@@ -663,52 +663,23 @@ def sample_t_r(batch_size: int, *, generator: torch.Generator,
     return t, torch.where(zero_mask, t, r)
 
 
-def training_loss(model: AceStepDiT, cfg: DiTConfig, *,
-                  hidden_states, attention_mask,
-                  text_hidden_states, text_attention_mask,
-                  lyric_hidden_states, lyric_attention_mask,
-                  refer_audio_packed, refer_order_mask,
-                  src_latents, chunk_masks, is_covers,
-                  silence_latent=None, cfg_ratio: float = 0.15,
-                  max_refer_count: int = 1,
-                  discrete_timesteps: Optional[Sequence[float]] = None,
-                  generator: Optional[torch.Generator] = None,
-                  keep: Optional[torch.Tensor] = None,
-                  noise: Optional[torch.Tensor] = None,
-                  t: Optional[torch.Tensor] = None,
-                  remat: bool = True) -> torch.Tensor:
-    """Flow-matching MSE with CFG condition dropout (fp32 scalar).
-
-    Timesteps: continuous logit-normal by default, or drawn uniformly from
-    `discrete_timesteps` (the turbo shift-3 schedule). The three random
-    draws are taken from `generator` in the JAX function's order (keep
-    mask, noise x1, timesteps), unless given: `keep` (B,) bool (True keeps
-    the condition), `noise` shaped like `hidden_states`, `t` (B,). JAX keys
-    and torch generators draw different numbers, so parity tests pass the
-    JAX draws here. Padded frames (attention_mask 0) are left out of the
-    mean."""
-    enc, _enc_mask, context_latents = prepare_condition(
-        model, cfg,
-        text_hidden_states=text_hidden_states,
-        text_attention_mask=text_attention_mask,
-        lyric_hidden_states=lyric_hidden_states,
-        lyric_attention_mask=lyric_attention_mask,
-        refer_audio_packed=refer_audio_packed,
-        refer_order_mask=refer_order_mask,
-        src_latents=src_latents, chunk_masks=chunk_masks, is_covers=is_covers,
-        silence_latent=silence_latent, max_refer_count=max_refer_count)
-    x0 = hidden_states
-    bsz = x0.shape[0]
-    dev = x0.device
+def training_draws(cfg: DiTConfig, x0: torch.Tensor, *,
+                   generator: Optional[torch.Generator] = None,
+                   cfg_ratio: float = 0.15,
+                   discrete_timesteps: Optional[Sequence[float]] = None,
+                   keep: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   t: Optional[torch.Tensor] = None):
+    """`training_loss`'s three draws for the batch `x0` (B, T, C): the
+    keep mask (B,) bool, the noise shaped like x0 and the timesteps (B,),
+    each taken from `generator` in the JAX function's order unless
+    given."""
+    bsz, dev = x0.shape[0], x0.device
     if keep is None:
         keep = torch.rand(bsz, generator=generator, device=dev) >= cfg_ratio
-    null = model.null_condition_emb.to(enc.dtype)
-    enc = torch.where(keep.to(dev).reshape(bsz, 1, 1), enc, null.expand_as(enc))
-
     if noise is None:
         noise = torch.randn(x0.shape, generator=generator, device=dev,
                             dtype=x0.dtype)
-    x1 = noise.to(x0.dtype)
     if t is None:
         if discrete_timesteps is not None:
             pool = torch.as_tensor(discrete_timesteps, dtype=torch.float32,
@@ -722,6 +693,57 @@ def training_loss(model: AceStepDiT, cfg: DiTConfig, *,
                               timestep_mu=cfg.timestep_mu,
                               timestep_sigma=cfg.timestep_sigma,
                               use_meanflow=False)
+    return keep, noise, t
+
+
+def training_loss(model: AceStepDiT, cfg: DiTConfig, *,
+                  hidden_states, attention_mask,
+                  text_hidden_states, text_attention_mask,
+                  lyric_hidden_states, lyric_attention_mask,
+                  refer_audio_packed, refer_order_mask,
+                  src_latents, chunk_masks, is_covers,
+                  silence_latent=None, cfg_ratio: float = 0.15,
+                  max_refer_count: int = 1,
+                  discrete_timesteps: Optional[Sequence[float]] = None,
+                  generator: Optional[torch.Generator] = None,
+                  keep: Optional[torch.Tensor] = None,
+                  noise: Optional[torch.Tensor] = None,
+                  t: Optional[torch.Tensor] = None,
+                  count: Optional[float] = None,
+                  remat: bool = True) -> torch.Tensor:
+    """Flow-matching MSE with CFG condition dropout (fp32 scalar).
+
+    Timesteps: continuous logit-normal by default, or drawn uniformly from
+    `discrete_timesteps` (the turbo shift-3 schedule). The three random
+    draws are taken from `generator` in the JAX function's order (keep
+    mask, noise x1, timesteps), unless given: `keep` (B,) bool (True keeps
+    the condition), `noise` shaped like `hidden_states`, `t` (B,). JAX keys
+    and torch generators draw different numbers, so parity tests pass the
+    JAX draws here (`training_draws`). Padded frames (attention_mask 0)
+    are left out of the mean. `count` replaces the mean's denominator (the
+    batch's valid frames x channels): a dp rank of a mesh passes the whole
+    batch's, so the ranks' losses, and their gradients, sum to the
+    unsplit batch's."""
+    enc, _enc_mask, context_latents = prepare_condition(
+        model, cfg,
+        text_hidden_states=text_hidden_states,
+        text_attention_mask=text_attention_mask,
+        lyric_hidden_states=lyric_hidden_states,
+        lyric_attention_mask=lyric_attention_mask,
+        refer_audio_packed=refer_audio_packed,
+        refer_order_mask=refer_order_mask,
+        src_latents=src_latents, chunk_masks=chunk_masks, is_covers=is_covers,
+        silence_latent=silence_latent, max_refer_count=max_refer_count)
+    x0 = hidden_states
+    bsz = x0.shape[0]
+    dev = x0.device
+    keep, noise, t = training_draws(
+        cfg, x0, generator=generator, cfg_ratio=cfg_ratio,
+        discrete_timesteps=discrete_timesteps, keep=keep, noise=noise, t=t)
+    null = model.null_condition_emb.to(enc.dtype)
+    enc = torch.where(keep.to(dev).reshape(bsz, 1, 1), enc, null.expand_as(enc))
+
+    x1 = noise.to(x0.dtype)
     t = t.to(device=dev, dtype=x0.dtype)
     tb = t[:, None, None]
     xt = tb * x1 + (1.0 - tb) * x0
@@ -731,4 +753,6 @@ def training_loss(model: AceStepDiT, cfg: DiTConfig, *,
     flow = x1 - x0
     sq = (v.float() - flow.float()) ** 2
     m = attention_mask.to(torch.float32)[:, :, None]
-    return (sq * m).sum() / torch.clamp(m.sum() * sq.shape[-1], min=1.0)
+    denom = m.sum() * sq.shape[-1] if count is None else \
+        torch.tensor(float(count), device=dev)
+    return (sq * m).sum() / torch.clamp(denom, min=1.0)

@@ -79,6 +79,52 @@ def seeded_init_(module: nn.Module, generator: torch.Generator,
 # ------------------------------------------------------------------
 
 
+class _RowReduce(torch.autograd.Function):
+    """The exit of a tensor-parallel region (Megatron's g): the partial
+    products summed over the tp group in place, the gradient passed on
+    as it is (every rank already holds the whole output gradient)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        dist.all_reduce(y, group=group)
+        ctx.mark_dirty(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _ColumnEntry(torch.autograd.Function):
+    """The entry of a tensor-parallel region (Megatron's f, the conjugate
+    of `_RowReduce`): the input passed on as it is, its gradient summed
+    over the tp group, since each rank's column shard sees only the
+    heads or features it holds."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dx):
+        dx = dx.contiguous().clone()
+        dist.all_reduce(dx, group=ctx.group)
+        return dx, None
+
+
+def enter_region(x: torch.Tensor, exit_module: nn.Module) -> torch.Tensor:
+    """x as the input of a tensor-parallel region whose row-parallel exit
+    is `exit_module` (an attention's `o_proj`, an MLP's `down`): under
+    autograd its gradient is summed over the exit's tp group; otherwise,
+    and outside a mesh, x itself. One entry serves every column-parallel
+    projection that reads the same input."""
+    group = exit_module.__dict__.get("tp_group")
+    if group is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _ColumnEntry.apply(x, group)
+
+
 def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """x @ W.T + b. A quantized weight (`ops/quant.QuantWeight`, whose
     `weight` slot is empty unless a merged weight is swapped in) computes
@@ -87,14 +133,15 @@ def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     A row-parallel shard (`parallel/mesh.attach_groups` sets its
     `tp_group`) holds a slice of the input features: its partial product
     is summed over the group before the bias (w8a8 sums its int32 product,
-    `ops/quant.w8a8_matmul`). A module without a group runs as it is."""
+    `ops/quant.w8a8_matmul`), through `_RowReduce`, whose gradient is the
+    identity. A module without a group runs as it is."""
     group = p.__dict__.get("tp_group")
     if p.weight is None:
         y = quantized_linear(p, x, group)
     else:
         y = F.linear(x, p.weight.to(x.dtype))
         if group is not None:
-            dist.all_reduce(y, group=group)
+            y = _RowReduce.apply(y, group)
     if p.bias is not None:
         y = y + p.bias.to(x.dtype)
     return y
@@ -109,6 +156,7 @@ def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: down(silu(gate(x)) * up(x))."""
+    x = enter_region(x, p.down)
     return linear(p.down, F.silu(linear(p.gate, x)) * linear(p.up, x))
 
 
@@ -160,6 +208,9 @@ def _qkv(p: Attention, x: torch.Tensor, kv_src: torch.Tensor, num_heads: int,
          num_kv_heads: int, head_dim: int, eps: float):
     B, Lq, _ = x.shape
     Lk = kv_src.shape[1]
+    same = kv_src is x
+    x = enter_region(x, p.o_proj)
+    kv_src = x if same else enter_region(kv_src, p.o_proj)
     q = linear(p.q_proj, x).reshape(B, Lq, num_heads, head_dim)
     k = linear(p.k_proj, kv_src).reshape(B, Lk, num_kv_heads, head_dim)
     v = linear(p.v_proj, kv_src).reshape(B, Lk, num_kv_heads, head_dim)
@@ -199,6 +250,7 @@ def attention_kv(p: Attention, x: torch.Tensor, k: torch.Tensor,
     """Attention over precomputed K/V (B, Lk, Hkv, D): the decoder's
     cross-attention with per-trajectory condition K/V."""
     B, Lq, _ = x.shape
+    x = enter_region(x, p.o_proj)
     q = linear(p.q_proj, x).reshape(B, Lq, num_heads, head_dim)
     q = rms_norm(p.q_norm, q, eps)
     out = _sdpa(q, k, v, mask)
@@ -209,6 +261,7 @@ def cross_kv(p: Attention, enc: torch.Tensor, *, num_kv_heads: int,
              head_dim: int, eps: float = 1e-6):
     """Cross-attention K/V from encoder states, once per trajectory."""
     B, Lk, _ = enc.shape
+    enc = enter_region(enc, p.o_proj)
     k = linear(p.k_proj, enc).reshape(B, Lk, num_kv_heads, head_dim)
     v = linear(p.v_proj, enc).reshape(B, Lk, num_kv_heads, head_dim)
     k = rms_norm(p.k_norm, k, eps)

@@ -65,6 +65,7 @@ import copy
 import dataclasses
 import datetime
 import itertools
+import math
 import os
 import shutil
 import sys
@@ -291,16 +292,149 @@ def slice_weights(weights: Dict[str, torch.Tensor], plan: ShardPlan,
     return out
 
 
-def _rebuild(model: nn.Module, tensors: Dict[str, torch.Tensor]
-             ) -> nn.Module:
+def _rebuild(model: nn.Module, tensors: Dict[str, torch.Tensor],
+             trainable: bool = False) -> nn.Module:
     """A copy of `model`'s module tree holding `tensors` (by name) in
-    place of its own."""
+    place of its own; its parameters require gradients when `trainable`."""
     memo: Dict[int, Any] = {}
     for name, t in _named_tensors(model):
         new = tensors[name]
-        memo[id(t)] = (nn.Parameter(new, requires_grad=False)
+        memo[id(t)] = (nn.Parameter(new, requires_grad=trainable)
                        if isinstance(t, nn.Parameter) else new)
     return copy.deepcopy(model, memo)
+
+
+def unshard_tensors(parts: Sequence[Dict[str, torch.Tensor]],
+                    plan: ShardPlan, shapes: Dict[str, Tuple[int, ...]]
+                    ) -> Dict[str, torch.Tensor]:
+    """The inverse of `shard_tensors` for float tensors: {name: the whole
+    tensor of shape `shapes[name]`} from `parts[r]`, the tensors tp rank r
+    holds (a replicated tensor is taken from rank 0; KV rows that several
+    ranks hold are written once per rank, the same values)."""
+    out = {}
+    for name, first in parts[0].items():
+        s = _split(plan, plan.ranges(0), name, False)
+        if s is None:
+            out[name] = first
+            continue
+        full = first.new_empty(shapes[name])
+        for r, part in enumerate(parts):
+            dim, lo, hi = _split(plan, plan.ranges(r), name, False)
+            full.narrow(dim, lo, hi - lo).copy_(part[name])
+        out[name] = full
+    return out
+
+
+# how a gradient is summed over tp (`grad_rules`)
+SPLIT, WHOLE, HEADS, KV_ROWS = "split", "whole", "heads", "kv_rows"
+
+
+def grad_rules(model: nn.Module, plan: ShardPlan) -> Dict[str, str]:
+    """{parameter name: how its gradient is summed over the tp group},
+    beside `shard_dims`. A tensor split over tp (SPLIT) holds its whole
+    gradient on every rank, as does a replicated tensor outside the tp
+    regions (WHOLE): the row-parallel exit's gradient is the identity and
+    the column-parallel entry sums its input's gradient
+    (`ops/basic.enter_region`). A replicated tensor applied to the rank's
+    own heads only (the per-head `q_norm` / `k_norm` scales, HEADS) has a
+    partial gradient, summed over tp. With fewer KV heads than ranks the
+    `k_proj` / `v_proj` rows of one KV head sit on several ranks, each
+    with the gradient of its own query heads (KV_ROWS), summed over the
+    ranks that hold that head. Every gradient is also summed over dp."""
+    shared_kv = plan.heads and plan.num_kv_heads < plan.tp
+    rules = {}
+    for name, dim in shard_dims(model, plan).items():
+        parts = name.split(".")
+        owner = parts[-2] if len(parts) > 1 else ""
+        if plan.heads and owner in ("q_norm", "k_norm"):
+            rules[name] = HEADS
+        elif shared_kv and owner in ("k_proj", "v_proj"):
+            rules[name] = KV_ROWS
+        else:
+            rules[name] = WHOLE if dim is None else SPLIT
+    return {n: rules[n] for n, _ in model.named_parameters()}
+
+
+# elements of one dp all-reduce bucket (gloo pays a host round trip a
+# call; a bucket is copied through host memory whole)
+BUCKET_ELEMS = 1 << 26
+
+
+class GradSync:
+    """One rank's gradient reduction over its mesh: the tp sums of
+    `grad_rules` in one flat all-reduce, then every gradient summed over
+    dp in buckets of at most BUCKET_ELEMS; and the global norm of
+    gradients split over tp. `rules` (`grad_rules` of the unsharded model,
+    made once on rank 0) are in the order of the rank's parameters, the
+    order the gradients come."""
+
+    def __init__(self, ctx, rules: Dict[str, str], plan: ShardPlan):
+        self.ctx = ctx
+        self.rules = list(rules.values())
+        self.kv = plan.ranges(ctx.tp_rank).get("kv")
+        self.kv_rows = plan.num_kv_heads * plan.head_dim
+        # a KV head's rows sit on tp / num_kv_heads ranks
+        self.copies = (max(1, plan.tp // plan.num_kv_heads)
+                       if plan.heads else 1)
+
+    def reduce_(self, grads: Sequence[torch.Tensor]) -> None:
+        """Sum `grads` (in the rules' order, every one present) in
+        place."""
+        import torch.distributed as dist
+
+        ctx = self.ctx
+        if ctx.tp > 1:
+            items = [(g, rule) for g, rule in zip(grads, self.rules)
+                     if rule in (HEADS, KV_ROWS)]
+            if items:
+                offs, size = [], 0
+                lo = self.kv[0] if self.kv else 0
+                for g, rule in items:
+                    if rule == KV_ROWS:
+                        width = g[0].numel()
+                        offs.append(size + lo * width)
+                        size += self.kv_rows * width
+                    else:
+                        offs.append(size)
+                        size += g.numel()
+                flat = items[0][0].new_zeros(size)
+                for (g, _), off in zip(items, offs):
+                    flat[off:off + g.numel()] = g.reshape(-1)
+                dist.all_reduce(flat, group=ctx.tp_group)
+                for (g, _), off in zip(items, offs):
+                    g.copy_(flat[off:off + g.numel()].view_as(g))
+        if ctx.dp > 1:
+            bucket: List[torch.Tensor] = []
+            size = 0
+            for g in list(grads) + [None]:
+                if bucket and (g is None or g.dtype != bucket[0].dtype
+                               or size + g.numel() > BUCKET_ELEMS):
+                    flat = torch.cat([b.reshape(-1) for b in bucket])
+                    dist.all_reduce(flat, group=ctx.dp_group)
+                    off = 0
+                    for b in bucket:
+                        b.copy_(flat[off:off + b.numel()].view_as(b))
+                        off += b.numel()
+                    bucket, size = [], 0
+                if g is not None:
+                    bucket.append(g)
+                    size += g.numel()
+
+    def global_norm(self, norms: torch.Tensor) -> torch.Tensor:
+        """The global norm from each gradient's fp32 norm on this rank:
+        split tensors' squares summed over tp (a KV head's rows counted
+        once across the ranks that hold it), the others counted once."""
+        import torch.distributed as dist
+
+        if self.ctx.tp == 1:
+            return torch.linalg.vector_norm(norms)
+        w_split = torch.tensor(
+            [1.0 if r == SPLIT else 1.0 / self.copies if r == KV_ROWS
+             else 0.0 for r in self.rules], device=norms.device)
+        sq = norms.square()
+        split = (sq * w_split).sum()
+        dist.all_reduce(split, group=self.ctx.tp_group)
+        return (split + (sq * (w_split == 0)).sum()).sqrt()
 
 
 def attach_groups(model: nn.Module, plan: ShardPlan, tp_rank: int,
@@ -581,11 +715,13 @@ def _make_groups(local, root, mesh_id: int, dp: int, tp: int,
                                timeout=timeout)
             if rank < n and t == rank % tp:
                 dp_group = g
+    # every rank of the mesh: per-rank replies (`Mesh.gather`)
+    group = dist.new_group(list(range(n)), backend="gloo", timeout=timeout)
     if rank < n:
         local.meshes[mesh_id] = SimpleNamespace(
             rank=rank, device=local.device, backend=local.backend, dp=dp,
             tp=tp, dp_rank=rank // tp, tp_rank=rank % tp, tp_group=tp_group,
-            dp_group=dp_group, objects={})
+            dp_group=dp_group, group=group, objects={})
 
 
 def _drop_mesh(local, root, mesh_id: int):
@@ -626,22 +762,29 @@ class Mesh:
         return {k: [counts[i] for counts in self.world.launches]
                 for i, k in enumerate(KERNELS)}
 
+    def gather(self, fn: Callable, *args) -> list:
+        """[`fn(*args)` on each rank of the mesh], in rank order: a
+        per-rank reading such as a rank's peak device memory."""
+        return self.call(_gather_values, fn, args)
+
     def describe(self) -> List[str]:
         return [f"rank {r}: {d} (dp {r // self.tp}, tp {r % self.tp}, "
                 f"{self.backend})" for r, d in enumerate(self.devices)]
 
     # ---- weights
 
-    def install(self, key: str, model: nn.Module, plan: ShardPlan
-                ) -> nn.Module:
+    def install(self, key: str, model: nn.Module, plan: ShardPlan,
+                trainable: bool = False) -> nn.Module:
         """Give every rank its shard of `model` (rank 0's own cut here, the
-        others' sent from it) under `objects[key]`; returns rank 0's."""
+        others' sent from it) under `objects[key]`; returns rank 0's (the
+        model itself when tp is 1). A `trainable` shard's parameters
+        require gradients on every rank."""
         own = model if plan.tp == 1 else _rebuild(
-            model, shard_tensors(model, plan, 0))
+            model, shard_tensors(model, plan, 0), trainable)
         skeleton = _rebuild(model, {
             n: torch.empty_like(t, device="meta")
             for n, t in _named_tensors(own)})
-        return self.call(_install, key, skeleton, plan,
+        return self.call(_install, key, skeleton, plan, trainable,
                          root=(model, own))
 
     def send_weights(self, key: str, weights: Dict[str, torch.Tensor],
@@ -674,28 +817,115 @@ class Mesh:
             world.stop()
 
 
+def _wire(ctx) -> torch.device:
+    """Where the backend moves bytes from: host memory under gloo, the
+    rank's card under nccl."""
+    return torch.device("cpu") if ctx.backend == "gloo" else ctx.device
+
+
 def _send(ctx, t: torch.Tensor, dst: int) -> None:
     import torch.distributed as dist
 
     b = t.detach().contiguous().reshape(-1).view(torch.uint8)
-    if ctx.backend == "gloo" and b.is_cuda:
-        b = b.cpu()
-    dist.send(b, dst)
+    dist.send(b.to(_wire(ctx)), dst)
 
 
 def _recv(ctx, t: torch.Tensor, src: int = 0) -> None:
+    """Into contiguous `t`, wherever it lives."""
     import torch.distributed as dist
 
     b = t.reshape(-1).view(torch.uint8)
-    if ctx.backend == "gloo" and b.is_cuda:
-        host = torch.empty(b.shape, dtype=torch.uint8)
-        dist.recv(host, src)
-        b.copy_(host)
-    else:
+    wire = _wire(ctx)
+    if b.device.type == wire.type:
         dist.recv(b, src)
+    else:
+        buf = torch.empty(b.shape, dtype=torch.uint8, device=wire)
+        dist.recv(buf, src)
+        b.copy_(buf)
 
 
-def _install(ctx, root, key: str, skeleton: nn.Module, plan: ShardPlan):
+def _gather_values(ctx, root, fn: Callable, args: tuple):
+    import torch.distributed as dist
+
+    out = [None] * (ctx.dp * ctx.tp) if ctx.rank == 0 else None
+    dist.gather_object(fn(*args), out, dst=0, group=ctx.group)
+    return out
+
+
+def gather_state(ctx, tensors: Dict[str, torch.Tensor], plan: ShardPlan,
+                 shapes: Dict[str, Tuple[int, ...]]
+                 ) -> Optional[Dict[str, torch.Tensor]]:
+    """Inside a command on every rank: the tp ranks of dp block 0 send
+    the split tensors among their named float `tensors` (the same names
+    on every rank) to rank 0, which joins them into the unsharded layout
+    (`shapes`), on the host: {name: whole tensor} on rank 0, None on the
+    others. dp blocks hold equal copies, so the others send nothing."""
+    if ctx.dp_rank != 0:
+        return None
+    split = [n for n in tensors
+             if _split(plan, plan.ranges(0), n, False) is not None]
+    if ctx.tp_rank != 0:
+        for name in split:
+            _send(ctx, tensors[name], 0)
+        return None
+    parts = [{n: t.detach().cpu() for n, t in tensors.items()}]
+    for r in range(1, ctx.tp):
+        part = {}
+        for name in split:
+            dim, lo, hi = _split(plan, plan.ranges(r), name, False)
+            shape = list(shapes[name])
+            shape[dim] = hi - lo
+            part[name] = torch.empty(shape, dtype=tensors[name].dtype)
+            _recv(ctx, part[name], r)
+        parts.append(part)
+    return unshard_tensors(parts, plan, shapes)
+
+
+def scatter_state(ctx, whole: Optional[Dict[str, torch.Tensor]],
+                  targets: Dict[str, torch.Tensor], plan: ShardPlan) -> None:
+    """Inside a command on every rank, the inverse of `gather_state`:
+    rank 0 holds the unsharded float tensors `whole`; each rank's
+    `targets` (the same names on every rank, its own shapes) are filled
+    with its cut of them."""
+    with torch.no_grad():
+        if ctx.rank == 0:
+            for r in range(1, ctx.dp * ctx.tp):
+                cut = slice_weights({n: whole[n] for n in targets}, plan,
+                                    r % ctx.tp)
+                for name in targets:
+                    _send(ctx, cut[name], r)
+            own = slice_weights({n: whole[n] for n in targets}, plan, 0)
+            for name, t in targets.items():
+                t.copy_(own[name])
+        else:
+            for t in targets.values():
+                _recv(ctx, t)
+
+
+def scatter_rows(ctx, blocks: Optional[Sequence[Dict[str, torch.Tensor]]],
+                 specs: Sequence[Sequence[Tuple[str, tuple, torch.dtype]]]
+                 ) -> Dict[str, torch.Tensor]:
+    """Inside a command on every rank: rank 0 holds `blocks[d]`, the
+    tensors of dp block d's rows, and sends each rank its block's (point
+    to point: a rank receives only its own rows); `specs[d]` names the
+    tensors of block d, their shapes and dtypes. Returns this rank's."""
+    if ctx.rank == 0:
+        for r in range(1, ctx.dp * ctx.tp):
+            block = blocks[r // ctx.tp]
+            for name, shape, _ in specs[r // ctx.tp]:
+                if math.prod(shape):
+                    _send(ctx, block[name], r)
+        return dict(blocks[0])
+    rows = {}
+    for name, shape, dtype in specs[ctx.dp_rank]:
+        rows[name] = torch.empty(shape, dtype=dtype, device=ctx.device)
+        if math.prod(shape):
+            _recv(ctx, rows[name])
+    return rows
+
+
+def _install(ctx, root, key: str, skeleton: nn.Module, plan: ShardPlan,
+             trainable: bool = False):
     if ctx.rank == 0:
         model, shard = root
         for r in range(1, ctx.dp * ctx.tp):
@@ -707,6 +937,7 @@ def _install(ctx, root, key: str, skeleton: nn.Module, plan: ShardPlan):
         shard = skeleton.to_empty(device=ctx.device)
         for _, t in _named_tensors(shard):
             _recv(ctx, t)
+        shard.requires_grad_(trainable)
     attach_groups(shard, plan, ctx.tp_rank, ctx.tp_group)
     ctx.objects[key] = shard
     return shard

@@ -233,14 +233,17 @@ def cmd_full(args) -> int:
                            latent_dim=handler.cfg.audio_acoustic_hidden_dim,
                            seed=args.seed)
     trainer = FullTrainer(handler.model, handler.cfg, tcfg)
-    if args.resume_from:
-        # the full trainer resumes from its own output dir's checkpoints:
-        # 'latest' or a step number, not a foreign path
-        if not trainer.restore(_resume_step(args.resume_from)):
-            raise SystemExit(
-                f"full: no checkpoint to resume in {args.output_dir}")
-    for _step, _loss, message in trainer.train(batches):
-        print(message, flush=True)
+    try:
+        if args.resume_from:
+            # the full trainer resumes from its own output dir's
+            # checkpoints: 'latest' or a step number, not a foreign path
+            if not trainer.restore(_resume_step(args.resume_from)):
+                raise SystemExit(
+                    f"full: no checkpoint to resume in {args.output_dir}")
+        for _step, _loss, message in trainer.train(batches):
+            print(message, flush=True)
+    finally:
+        trainer.close()
     return 0
 
 
@@ -308,10 +311,12 @@ def build_parser() -> argparse.ArgumentParser:
                        "under --output-dir/checkpoints)")
     _add_train_common(p)
     p.add_argument("--mesh-dp", type=int, default=1,
-                   help="data-parallel mesh axis (above 1 raises: "
-                        "multi-device training is not ported yet)")
+                   help="data-parallel mesh axis: each batch's rows split "
+                        "over dp ranks (the batch size must divide)")
     p.add_argument("--mesh-tp", type=int, default=1,
-                   help="tensor-parallel mesh axis (above 1 raises)")
+                   help="tensor-parallel mesh axis: heads and MLP features "
+                        "split over tp ranks (one process a device; with "
+                        "--device cpu, gloo CPU ranks)")
     p.set_defaults(fn=cmd_full)
 
     p = sub.add_parser("preprocess", help="manifest -> tensor dir")

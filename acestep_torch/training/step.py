@@ -8,6 +8,12 @@ backward and the optimizer update. The optimizer is the caller's
 `clip_by_global_norm` does (`clip_by_global_norm_`). A parameter the loss
 does not reach gets a zero gradient, as under `jax.grad`, so AdamW decays
 it too. `training/trainer_full.py` drives this step.
+
+On a rank of a dp x tp mesh (`sync`, a `parallel.mesh.GradSync`) the
+step is the same on its shard and its rows: the gradients are zero-filled
+first, so every rank issues the same collectives, then summed over tp and
+dp by the tensors' rules, clipped by the global norm over the shards, and
+AdamW steps the shard (elementwise, so it equals the unsharded update).
 """
 
 from __future__ import annotations
@@ -22,34 +28,43 @@ from acestep_torch.models.dit import training_loss
 
 
 def make_train_step(model, cfg: DiTConfig, optimizer: torch.optim.Optimizer,
-                    *, grad_clip: Optional[float] = None):
-    """Returns step(batch, generator=None, **draws) -> loss (detached fp32
-    scalar); `draws` are `training_loss`'s keep/noise/t."""
+                    *, grad_clip: Optional[float] = None, sync=None):
+    """Returns step(batch, generator=None, count=None, **draws) -> loss
+    (detached fp32 scalar); `draws` are `training_loss`'s keep/noise/t and
+    `count` its denominator. `sync` (a mesh rank's `GradSync`) reduces
+    the gradients over the mesh before the clip."""
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def step(batch, generator: Optional[torch.Generator] = None, **draws):
+    def step(batch, generator: Optional[torch.Generator] = None,
+             count: Optional[float] = None, **draws):
         optimizer.zero_grad(set_to_none=True)
-        loss = training_loss(model, cfg, generator=generator, **draws,
-                             **batch)
+        loss = training_loss(model, cfg, generator=generator, count=count,
+                             **draws, **batch)
         loss.backward()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        if sync is not None:
+            sync.reduce_(grads)
         if grad_clip is not None:
-            clip_by_global_norm_([p.grad for p in params], grad_clip)
+            clip_by_global_norm_(grads, grad_clip, sync)
         optimizer.step()
         return loss.detach()
 
     return step
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> None:
+def clip_by_global_norm_(grads, max_norm: float, sync=None) -> None:
     """optax.clip_by_global_norm, in place: every gradient is scaled by
     max_norm / norm unless the global norm is below max_norm
     (`torch.nn.utils.clip_grad_norm_` scales by max_norm / (norm + 1e-6)
-    instead). The norm is summed in fp32."""
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+    instead). The norm is summed in fp32; on a mesh rank (`sync`, after
+    its `reduce_`) over the shards (`GradSync.global_norm`)."""
+    norms = torch.stack(
+        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads])
+    norm = (torch.linalg.vector_norm(norms) if sync is None
+            else sync.global_norm(norms))
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     for g in grads:

@@ -15,7 +15,8 @@ so the exit code is non-zero and no result line is printed:
    at the shapes the main paths give them, with kernel, plain-version and
    library times (CUDA events around calls queued behind a spin kernel,
    so host cost does not enter: `cuda_ms`) and the bound the card's
-   published peaks set for the same work; K2/K3's limit is also held
+   published peaks set for the same work (K2/K3 also at a tp=2 rank's
+   8/4 heads, (1, 1500)); K2/K3's limit is also held
    against controls (the plain backward with a fault) that it must catch,
    and both must give the same bits twice. K1 at (1, 750) also reports
    host microseconds per call (`k1_host_us`); K4 is timed through its C
@@ -75,11 +76,14 @@ Between phases 5 and 6, on phase 5's full-width handler:
   reference (the card's codes equal to the CPU's), then phase 5's turbo
   weights quantized and a 30 s render through the facade (after a
   warm-up) beside a bf16 one: `quantized_bytes`, peak memory, wall,
-  time_costs, K1 and K4. Then the 16 GB tier, injected as the tier
-  config: `initialize_auto` must pick the 4B planner at w8a8 (int8 KV
-  cache, `head_q`); the 2-layer w8a8 card-vs-CPU logits, graph against
-  eager greedy tokens, the w8a8 decode step beside its bound, and a 60 s
-  thinking request on the w8a8 DiT after a warm-up.
+  time_costs, K1 and K4. Then the 2-layer w8a8 card-vs-CPU logits, and
+  the 16 GB and 8 GB tiers under a real cap, each in a child process
+  (`chip_smoke.py --tier 16|8`: `ACESTEP_MAX_HBM_GB` and the allocator's
+  cap, 15 / 7 GiB, set before any handler): a w8a8 DiT, the tier's
+  planner from `initialize_auto` (4B / 0.6B at w8a8, int8 KV cache,
+  `head_q`), at 16 GB graph against eager greedy tokens and the w8a8
+  decode step beside its bound, then a 60 s thinking request after a
+  warm-up, whose reserved peak must stay under the cap.
 - serving (after the planner, on phase 5's handler and the planner's
   4B LLMHandler): the port's REST server in this process on 127.0.0.1
   (ephemeral port, `http.client`). DiT-only first: 4 compatible 60 s
@@ -111,7 +115,7 @@ Between phases 5 and 6, on phase 5's full-width handler:
   to its plain version at the per-rank heads (1, 750, 8/4)), dp=2 (batch
   3 padded to 4 and trimmed, within TOL_MESH), and the planner at tp=2
   as the server builds it from `--lm-tensor-parallel 2` (teacher-forced
-  logits against tp=1 within TOL_MESH_LM, a 60 s thinking request over
+  logits against tp=1 within TOL_MESH_LM, a 10 s thinking request over
   REST); each world's start-up and render walls, labelled
   as gloo ranks sharing one H100.
 - lrc: a turbo 60 s request with lyrics and want_lrc=True at 24 layers
@@ -124,19 +128,28 @@ Phase 6 goes on with `rest_training`: `/v1/training/start` for 2 LoRA
 steps at full width on the tensors phase 6 preprocessed (K1, K2, K3
 counted), `/v1/training/status` polled until done, the written adapter
 loaded; `full_training`: the CLI's `full` at full width on the same
-tensors, 4 steps with a checkpoint every 2, the latest checkpoint
-restored bit-equal in this process, a resume from `latest` to step 6
+tensors, 2 steps with a checkpoint every 2, the latest checkpoint
+restored bit-equal in this process, a resume from `latest` to step 4
 (seconds per step, launches per step, peak memory, checkpoint bytes, save
-and restore seconds; the output deleted after); and `estimate`: the CLI's
+and restore seconds; the output deleted after); `full_training_mesh`: the
+full trainer over meshes on a batch of both tensor files (one row cut to
+60 s of valid frames), two updates each: a 1-rank NCCL mesh bit-equal to
+the plain trainer, then two gloo ranks sharing the card at tp=2 and at
+dp=2, the loss and the gradient (per family of parameters) within
+TOL_FULL_MESH of the plain update's, each beside a fault control that
+must exceed it, every rank's peak memory, seconds per update and K1-K3
+launches, and tp=2's checkpoint (gathered to the unsharded layout)
+restored bit-equal into an unsharded trainer; and `estimate`: the CLI's
 `estimate --num-batches 2` (wall, ranked targets) and a small model's
 estimate, card against CPU.
 
 The launch counts of the kernel table are those of phases 5 and 6 with
-their `tasks`, `adapter`, `rest_training`, `full_training` and `estimate`
-parts, the checkpoint render, the measured thinking requests, the serving,
-dataset and mesh phases (the mesh's follower ranks' launches summed in,
-as their command replies return them), the quant phase's measured renders
-and the lrc request. The last two lines are the kernel
+their `tasks`, `adapter`, `rest_training`, `full_training`,
+`full_training_mesh` and `estimate` parts, the checkpoint render, the
+measured thinking requests, the serving, dataset and mesh phases (the
+meshes' follower ranks' launches summed in, as their command replies
+return them), the quant phase's measured renders and its tier children's
+measured requests (as the children report them), and the lrc request. The last two lines are the kernel
 table and {"ok": true, "device": ...}.
 """
 
@@ -475,18 +488,19 @@ def _k4_case(N, L, C, seed):
     return rec
 
 
-def _k23_case(B, L, window, seed):
-    """K2 and K3 at a training shape: errors against the plain backward in
-    fp32, each kernel's time alone, the plain backward's time (one call
-    computes dq, dk and dv), and SDPA's backward (forward + backward minus
-    forward) as the library time of the pair."""
+def _k23_case(B, L, window, seed, heads=(16, 8)):
+    """K2 and K3 at a training shape with `heads` (query, KV) heads: errors
+    against the plain backward in fp32, each kernel's time alone, the
+    plain backward's time (one call computes dq, dk and dv), and SDPA's
+    backward (forward + backward minus forward) as the library time of the
+    pair."""
     import torch
     import torch.nn.functional as F
 
     from acestep_torch.ops import _build
     from acestep_torch.ops import flash_attention as fa
 
-    Hq, Hkv, D = 16, 8, 128
+    (Hq, Hkv), D = heads, 128
     g = torch.Generator("cuda").manual_seed(seed)
     q, k, v, dout = (torch.randn((B, L, h, D), generator=g, device="cuda")
                      .to(torch.bfloat16) for h in (Hq, Hkv, Hkv, Hq))
@@ -599,7 +613,9 @@ def phase_kernels():
     # the training shapes: a 120 s sample (3000 frames, 1500 patches) full
     # and banded, a ragged length, and two 60 s samples
     k23 = [_k23_case(1, 1500, None, 12), _k23_case(1, 1500, 128, 13),
-           _k23_case(1, 1001, 128, 14), _k23_case(2, 750, None, 15)]
+           _k23_case(1, 1001, 128, 14), _k23_case(2, 750, None, 15),
+           # a tp=2 rank's heads in the full trainer over a mesh
+           _k23_case(1, 1500, None, 18, heads=(8, 4))]
     torch.cuda.empty_cache()
     emit(phase="kernels", seconds=time.time() - t0)
     return k1, k4, [r[0] for r in k23], [r[1] for r in k23]
@@ -1522,10 +1538,16 @@ def _thinking_requests(dit, llm, phase: str, requests):
     return codes
 
 
+# CoT tokens of `_graph_vs_eager`'s plans: the eager step (33-97 ms at
+# 4B) sets the check's time, and 64 tokens cross several graph buckets
+GRAPH_CHECK_COT_TOKENS = 64
+
+
 def _graph_vs_eager(llm, phase: str):
-    """Greedy CoT + codes of a 10 s plan as graph replays and with the
-    eager step (no cross-request prefix: a reused prefix is another
-    prefill shape): the tokens must be identical."""
+    """Greedy CoT (at most GRAPH_CHECK_COT_TOKENS) + codes of a 10 s plan
+    as graph replays and with the eager step (no cross-request prefix: a
+    reused prefix is another prefill shape): the tokens must be
+    identical."""
     import torch
 
     eng = llm.engine
@@ -1538,7 +1560,8 @@ def _graph_vs_eager(llm, phase: str):
         plans[graphs] = llm.plan(
             "dark techno, pounding kick, 130 bpm", "[Instrumental]",
             target_duration=10, seed=0, cfg_scale=2.0,
-            metadata_temperature=0.0, codes_temperature=0.0)
+            metadata_temperature=0.0, codes_temperature=0.0,
+            max_cot_tokens=GRAPH_CHECK_COT_TOKENS)
         torch.cuda.synchronize()
         plans[graphs]["wall_s"] = time.time() - t1
     eng.cuda_graphs, eng.cross_prefix_enabled = True, True
@@ -1613,6 +1636,9 @@ TOL_MESH = 2e-2
 # logit (the card-vs-CPU limit of `_lm_reference`).
 TOL_MESH_LM = 5e-2
 MESH_LYRICS = "[verse]\nsplit across the ranks\n[chorus]\nall reduce"
+# the tp=2 planner's thinking request over REST: a short song, since each
+# decode step of two gloo ranks sharing the card costs 150-290 ms
+MESH_THINKING_SECONDS = 10
 
 
 def _rel_l2(got, want) -> float:
@@ -1664,8 +1690,8 @@ def phase_mesh(turbo, llm):
     4. the planner at tp=2 on the same world, built by the server's own
        wiring from `--lm-size auto --lm-tensor-parallel 2` (the tier's 4B,
        seed 0: the planner phase's weights): teacher-forced logits against
-       tp=1 (TOL_MESH_LM), then a 60 s thinking request through the REST
-       server with that planner (wall, tokens/s).
+       tp=1 (TOL_MESH_LM), then a MESH_THINKING_SECONDS thinking request
+       through the REST server with that planner (wall, tokens/s).
 
     Walls and start-ups (spawn, weight transfer) are of ranks sharing one
     H100 over gloo, not of several cards. Returns the launches of the
@@ -1826,7 +1852,8 @@ def phase_mesh(turbo, llm):
             server, port = _serve(state)
             try:
                 body = dict(prompt="melodic house, airy pads",
-                            lyrics=MESH_LYRICS, audio_duration=60, seed=21,
+                            lyrics=MESH_LYRICS,
+                            audio_duration=MESH_THINKING_SECONDS, seed=21,
                             use_random_seed=False, thinking=True,
                             audio_format="wav")
                 before = anchor.launches()
@@ -1845,7 +1872,8 @@ def phase_mesh(turbo, llm):
         codes_s, codes = timing["codes"][0], timing["codes"][1][0]
         k1, k4 = fa.launches - k1, sc.launches - k4
         count(k1, k4, ranks)
-        emit(phase="mesh", part="thinking_rest_tp2", duration=60.0,
+        emit(phase="mesh", part="thinking_rest_tp2",
+             duration=MESH_THINKING_SECONDS,
              wall_s=wall, lm_time_cost=costs.get("lm_time_cost"),
              cot_tokens=len(cot_ids), cot_s=cot_s,
              cot_tokens_per_s=len(cot_ids) / cot_s, codes=len(codes),
@@ -1853,8 +1881,9 @@ def phase_mesh(turbo, llm):
              planner_k1_per_rank=ranks, k1_launches=k1, k4_launches=k4,
              metas=entry.get("metas"), time_costs=costs,
              note="gloo, ranks sharing one H100; eager decode under tp")
-        if len(codes) != 300 or not costs.get("lm_time_cost") or k1 < 8 * \
-                turbo.cfg.num_hidden_layers:
+        if len(codes) != 5 * MESH_THINKING_SECONDS or \
+                not costs.get("lm_time_cost") or \
+                k1 < 8 * turbo.cfg.num_hidden_layers:
             raise AssertionError(f"mesh thinking tp=2: {len(codes)} codes, "
                                  f"K1 {k1}, costs {costs}")
     finally:
@@ -2593,19 +2622,14 @@ def phase_quant(turbo):
     handler of their own (sharing phase 5's VAE; phase 5's bf16 DiT waits
     in host memory, so the peak is the quantized service's) and a 30 s
     render through the facade after a warm-up, beside a bf16 render.
-    Then the 16 GB tier, injected as the tier config: `initialize_auto`
-    must pick the 4B planner at w8a8 (int8 KV cache, `head_q`, no float
-    head); the 2-layer w8a8 card-vs-CPU logits, graph against eager greedy
-    tokens, the w8a8 decode step's times beside its bound, and a 60 s
-    thinking request (after a warm-up) on the w8a8 DiT. Returns the
-    launches and the measured request's codes."""
+    Then the 2-layer w8a8 planner's card-vs-CPU logits, and the 16 GB and
+    8 GB tiers under a real cap, each in a child process (`phase_tier`):
+    the w8a8 DiT and the tier's planner, a 60 s thinking request after a
+    warm-up. Returns the launches and the 16 GB tier's measured request's
+    codes."""
     import torch
 
-    from acestep_torch import runtime_config as rc
     from acestep_torch.config import DiTConfig, VAEConfig
-    from acestep_torch.llm.handler import LLMHandler
-    from acestep_torch.ops import flash_attention as fa
-    from acestep_torch.ops import snake_conv as sc
     from acestep_torch.ops.quant import quantized_bytes
     from acestep_torch.pipeline.handler import AceStepHandler
 
@@ -2628,7 +2652,6 @@ def phase_quant(turbo):
              time_costs=costs)
         turbo.model.to("cpu")
         torch.cuda.empty_cache()
-        dits = {}
         for mode in QUANT_MODES:
             ref = _quant_reference(mode)
             t1 = time.time()
@@ -2650,49 +2673,118 @@ def phase_quant(turbo):
                  k4_launches=k4, memory_allocated=resident,
                  max_memory_allocated=peak,
                  time_costs=costs, reference=ref)
-            if mode == "w8a8":
-                dits[mode] = h
             del h
             gc.collect()
             torch.cuda.empty_cache()
-
-        saved = rc._GLOBAL
-        rc.set_global_config(rc.get_tier_config(16.0))
-        try:
-            reference = _lm_reference("w8a8")
-            emit(phase="quant", part="lm_reference", **reference)
-            t1 = time.time()
-            llm = LLMHandler(dtype=torch.bfloat16)
-            picked = llm.initialize_auto()
-            torch.cuda.synchronize()
-            eng = llm.engine
-            model = eng.model
-            if (picked["size"], picked["quantization"]) != ("4B", "w8a8") \
-                    or not eng.kv_quant or not hasattr(model, "head_q") \
-                    or hasattr(model, "lm_head"):
-                raise AssertionError(
-                    f"quant: the 16 GB tier picked {picked}, kv_quant "
-                    f"{eng.kv_quant}, head_q {hasattr(model, 'head_q')}, "
-                    f"lm_head {hasattr(model, 'lm_head')}")
-            emit(phase="quant", part="planner_init", tier=rc._GLOBAL.name,
-                 picked=picked, init_s=time.time() - t1,
-                 lm_bytes=quantized_bytes(model),
-                 memory_allocated=torch.cuda.memory_allocated())
-            _graph_vs_eager(llm, "quant")
-            emit(phase="quant", part="decode_step", **_step_times(eng))
-            codes = _thinking_requests(dits["w8a8"], llm, "quant", [
-                ("warm-up", "lofi hip hop, rainy window, soft keys", 12),
-                ("thinking_60s_w8a8",
-                 "melodic house, airy pads, female vocals", 21)])
-            count(fa.launches, sc.launches)
-        finally:
-            rc.set_global_config(saved)
-    del llm, eng, model, dits
-    gc.collect()
-    torch.cuda.empty_cache()
+    emit(phase="quant", part="lm_reference", **_lm_reference("w8a8"))
+    codes = None
+    for gb in sorted(TIER_CAPS_GIB, reverse=True):
+        result = _tier_child(gb)
+        count(result["k1"], result["k4"])
+        codes = codes or result["codes"]
     turbo.model.to("cuda")
     emit(phase="quant", seconds=time.time() - t0, launches=launches)
     return launches, codes
+
+
+# The low-memory tiers under a real cap: the allocator of a process of its
+# own capped at each tier's nominal size less 1 GiB (a card of that size
+# reports up to its nominal GiB, and its CUDA context, outside the
+# allocator's count, takes ~0.5 GiB), with ACESTEP_MAX_HBM_GB set, both
+# before any handler is built. One process a tier: after the 16 GB tier's
+# handlers were let go, the 8 GB tier's initialisation ran out of its cap
+# in the same process (measured on one H100).
+TIER_CAPS_GIB = {16: 15.0, 8: 7.0}
+# the planner each tier picks (`runtime_config`'s table, JAX's)
+TIER_PLANNERS = {16: ("4B", "w8a8"), 8: ("0.6B", "w8a8")}
+
+
+def _tier_child(gb: int) -> dict:
+    """`phase_tier(gb)` in a child process (`--tier gb`); its JSON lines
+    are printed here; returns its result (codes, K1 and K4 launches)."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--tier", str(gb)],
+        capture_output=True, text=True, timeout=900)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"tier_result"'):
+            result = json.loads(line)["tier_result"]
+        else:
+            print(line, flush=True)
+    if proc.returncode or result is None:
+        raise AssertionError(f"tier {gb} GB: the child exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    emit(phase="quant", part=f"tier_{gb}g_child", wall_s=time.time() - t0)
+    return result
+
+
+def phase_tier(gb: int) -> None:
+    """One low-memory tier under a real cap, in a process of its own:
+    ACESTEP_MAX_HBM_GB and the allocator's cap (TIER_CAPS_GIB) set before
+    anything is built; the w8a8 turbo DiT (seeded, full width) and
+    `initialize_auto`'s planner, which must be the tier's (TIER_PLANNERS;
+    at w8a8 an int8 KV cache and `head_q`, no float head); at 16 GB the
+    graph-vs-eager greedy tokens and the w8a8 decode step; then a 60 s
+    thinking request (at 16 GB after a warm-up; at 8 GB it captures the
+    graphs too), whose reserved peak must stay under the cap. Prints the
+    result as the line {"tier_result": ...}."""
+    os.environ["ACESTEP_MAX_HBM_GB"] = str(gb)
+    import torch
+
+    from acestep_torch import runtime_config as rc
+    from acestep_torch.config import DiTConfig, VAEConfig
+    from acestep_torch.llm.handler import LLMHandler
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+    from acestep_torch.ops.quant import quantized_bytes
+    from acestep_torch.pipeline.handler import AceStepHandler
+
+    cap = int(TIER_CAPS_GIB[gb] * (1 << 30))
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    phase = f"tier_{gb}g"
+    t0 = time.time()
+    h = AceStepHandler(DiTConfig.turbo(), VAEConfig(), dtype=torch.bfloat16)
+    h.initialize_service(seed=0, quantization="w8a8")
+    llm = LLMHandler(dtype=torch.bfloat16)
+    picked = llm.initialize_auto()
+    torch.cuda.synchronize()
+    eng, model = llm.engine, llm.engine.model
+    tier = rc.get_global_config().name
+    if tier != phase or h.tier.name != phase or \
+            (picked["size"], picked["quantization"]) != TIER_PLANNERS[gb] \
+            or not eng.kv_quant or not hasattr(model, "head_q") \
+            or hasattr(model, "lm_head"):
+        raise AssertionError(
+            f"{phase}: tier {tier}, the handler's {h.tier.name}, picked "
+            f"{picked}, kv_quant {eng.kv_quant}, head_q "
+            f"{hasattr(model, 'head_q')}, lm_head "
+            f"{hasattr(model, 'lm_head')}")
+    emit(phase=phase, part="init", cap_bytes=cap, picked=picked,
+         init_s=time.time() - t0, dit_bytes=quantized_bytes(h.model),
+         lm_bytes=quantized_bytes(model),
+         memory_allocated=torch.cuda.memory_allocated(),
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    if gb == 16:
+        _graph_vs_eager(llm, phase)
+        emit(phase=phase, part="decode_step", **_step_times(eng))
+    torch.cuda.reset_peak_memory_stats()
+    # the 8 GB tier's one request also captures the planner's graphs
+    warm = [("warm-up", "lofi hip hop, rainy window, soft keys", 12)]
+    codes = _thinking_requests(h, llm, phase, (warm if gb == 16 else []) + [
+        (f"thinking_60s_w8a8_{gb}g",
+         "melodic house, airy pads, female vocals", 21)])
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    emit(phase=phase, part="verdict", cap_bytes=cap,
+         max_memory_allocated=peak, max_memory_reserved=reserved,
+         fits=reserved <= cap, seconds=time.time() - t0)
+    if reserved > cap:
+        raise AssertionError(f"{phase}: reserved {reserved} over the cap "
+                             f"{cap}")
+    print(json.dumps({"tier_result": {"codes": codes, "k1": fa.launches,
+                                      "k4": sc.launches}}), flush=True)
 
 
 # ------------------------------------------------------------------
@@ -2882,28 +2974,31 @@ def phase_training(k4_per_song: int):
         adapter = phase_adapter(os.path.join(work, "lora", "adapter.npz"))
         rest = phase_rest_training(os.path.join(work, "tensors"), work)
         full = phase_full_training(os.path.join(work, "tensors"), work)
+        full_mesh = phase_full_training_mesh(os.path.join(work, "tensors"),
+                                             work)
         estimate = phase_estimate(os.path.join(work, "tensors"))
-    return training, adapter, rest, full, estimate
+    return training, adapter, rest, full, full_mesh, estimate
 
 
-def _state_digests(model, optimizer):
-    """An order-sensitive integer digest of each tensor of the model's and
-    the optimizer's state (the weighted sum of its bits, on its device),
-    and the optimizer's param groups: equal state gives equal digests, a
-    stale or shuffled tensor almost surely another."""
+def _digest(t) -> int:
+    """An order-sensitive integer digest of a tensor's bits (their
+    weighted sum, on the card)."""
     import torch
 
     ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    flat = t.detach().reshape(-1).to("cuda")
+    x = flat.view(ints[flat.element_size()]).to(torch.int64)
+    w = torch.arange(flat.numel(), device=flat.device) % 65521 + 1
+    return int((x * w).sum())
 
-    def digest(t):
-        flat = t.detach().reshape(-1)
-        x = flat.view(ints[flat.element_size()]).to(torch.int64)
-        w = torch.arange(flat.numel(), device=flat.device) % 65521 + 1
-        return int((x * w).sum())
 
-    opt = optimizer.state_dict()
-    return {"model": {k: digest(v) for k, v in model.state_dict().items()},
-            "optimizer": {(i, k): digest(v) for i, st in opt["state"].items()
+def _state_digests(model_state, opt):
+    """`_digest` of each tensor of a model's and an optimizer's state
+    dicts, and the optimizer's param groups: equal state gives equal
+    digests, a stale or shuffled tensor almost surely another."""
+    return {"model": {k: _digest(v) for k, v in model_state.items()},
+            "optimizer": {(i, k): _digest(v)
+                          for i, st in opt["state"].items()
                           for k, v in st.items()},
             "param_groups": opt["param_groups"]}
 
@@ -2911,12 +3006,12 @@ def _state_digests(model, optimizer):
 def phase_full_training(tensors: str, work: str):
     """The training CLI's `full` at full width (DiTConfig.turbo(), every
     parameter in bf16, AdamW with the default warmup) on phase 6's two
-    120 s tensor files: 4 steps with a checkpoint every 2, then the latest
+    120 s tensor files: 2 steps with a checkpoint every 2, then the latest
     checkpoint restored in this process into an uninitialised model and
     its optimizer, whose state must be bit-equal (by `_state_digests`) to
-    the trainer's live state when it saved; checkpoint 2 deleted (at most
-    2 checkpoints, ~14 GB each, on disk), a resume from `latest` to step
-    6, and the output directory deleted. The CLI runs as JAX's does; this
+    the trainer's live state when it saved; a resume from `latest` to step
+    4 (2 checkpoints, ~14 GB each, on disk), and the output directory
+    deleted. The CLI runs as JAX's does; this
     phase times it from outside, through the trainer's step function and
     `save`: seconds per step (the device's, synchronised on both sides),
     K1/K2/K3 launches per step, peak memory (the digests' own excluded),
@@ -2966,8 +3061,8 @@ def phase_full_training(tensors: str, work: str):
         if fresh:
             seconds = time.time() - t0
             peaks.append(torch.cuda.max_memory_allocated())
-            saves[self.step] = (seconds, _state_digests(self.model,
-                                                        self.optimizer))
+            saves[self.step] = (seconds, _state_digests(
+                self.model.state_dict(), self.optimizer.state_dict()))
             torch.cuda.reset_peak_memory_stats()
 
     def run(*extra):
@@ -2986,23 +3081,23 @@ def phase_full_training(tensors: str, work: str):
     fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
     sc.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    first_wall, printed = run("--max-steps", "4")
+    first_wall, printed = run("--max-steps", "2")
     per_run = {"K1": fa.launches, "K2": fa.launches_bwd_dq,
                "K3": fa.launches_bwd_dkv}
-    if len(losses) != 4 or sorted(saves) != [2, 4] or \
-            sorted(os.listdir(ckpts)) != ["2", "4"] or \
+    if len(losses) != 2 or sorted(saves) != [2] or \
+            sorted(os.listdir(ckpts)) != ["2"] or \
             not all(np.isfinite(losses)) or \
             [line.split(" (")[0] for line in printed if
-             line.startswith("step")] != [f"step 4/4 loss {losses[-1]:.4f}"]:
+             line.startswith("step")] != [f"step 2/2 loss {losses[-1]:.4f}"]:
         raise AssertionError(f"full: losses {losses}, saves {sorted(saves)},"
                              f" checkpoints {sorted(os.listdir(ckpts))}, "
                              f"printed {printed}")
-    path = os.path.join(ckpts, "4")
+    path = os.path.join(ckpts, "2")
     ckpt_bytes = {name: os.path.getsize(os.path.join(path, name))
                   for name in sorted(os.listdir(path))}
 
     # the latest checkpoint into an uninitialised model: bit-equal to the
-    # trainer's state when it saved step 4
+    # trainer's state when it saved step 2
     cfg = DiTConfig.turbo()
     shell = build_dit(cfg, "cuda", torch.bfloat16)
     trainer = FullTrainer(shell, cfg, FullTrainingConfig(
@@ -3012,8 +3107,9 @@ def phase_full_training(tensors: str, work: str):
     restored = trainer.restore()
     torch.cuda.synchronize()
     restore_s = time.time() - t0
-    got = _state_digests(shell, trainer.optimizer)
-    want = saves[4][1]
+    got = _state_digests(shell.state_dict(),
+                         trainer.optimizer.state_dict())
+    want = saves[2][1]
     same_model = got["model"] == want["model"]
     same_opt = got["optimizer"] == want["optimizer"] and \
         got["param_groups"] == want["param_groups"] and \
@@ -3023,20 +3119,19 @@ def phase_full_training(tensors: str, work: str):
     del trainer, shell
     gc.collect()
     torch.cuda.empty_cache()
-    if not (restored and step_after == 4 and same_model and same_opt
+    if not (restored and step_after == 2 and same_model and same_opt
             and finite):
         raise AssertionError(f"full restore: restored {restored}, step "
                              f"{step_after}, model bit-equal {same_model}, "
                              f"optimizer bit-equal {same_opt}, finite "
                              f"{finite}")
 
-    shutil.rmtree(os.path.join(ckpts, "2"))
     torch.cuda.reset_peak_memory_stats()
-    resume_wall, printed = run("--max-steps", "6", "--resume-from", "latest")
-    if len(losses) != 6 or sorted(saves) != [2, 4, 6] or \
-            sorted(os.listdir(ckpts)) != ["4", "6"] or \
+    resume_wall, printed = run("--max-steps", "4", "--resume-from", "latest")
+    if len(losses) != 4 or sorted(saves) != [2, 4] or \
+            sorted(os.listdir(ckpts)) != ["2", "4"] or \
             not all(np.isfinite(losses)) or \
-            not any(line.startswith("step 6/6") for line in printed):
+            not any(line.startswith("step 4/4") for line in printed):
         raise AssertionError(f"full resume: losses {losses}, checkpoints "
                              f"{sorted(os.listdir(ckpts))}, printed "
                              f"{printed}")
@@ -3045,14 +3140,14 @@ def phase_full_training(tensors: str, work: str):
     layers = cfg.num_hidden_layers
     launches = {"K1": fa.launches, "K2": fa.launches_bwd_dq,
                 "K3": fa.launches_bwd_dkv, "K4": sc.launches}
-    need = {"K1": 2 * layers * 6, "K2": layers * 6, "K3": layers * 6}
+    need = {"K1": 2 * layers * 4, "K2": layers * 4, "K3": layers * 4}
     short = {k: (launches[k], n) for k, n in need.items() if launches[k] < n}
     if short:
         raise AssertionError(f"full training launches (got, need): {short}")
-    warm = step_s[1:4] + step_s[5:]     # the first step of each run aside
-    emit(phase="full_training", card=_card(), steps=6, losses=losses,
+    warm = step_s[1:2] + step_s[3:]     # the first step of each run aside
+    emit(phase="full_training", card=_card(), steps=4, losses=losses,
          s_per_step=step_s, s_per_step_median=statistics.median(warm),
-         launches_per_step={k: v / 4 for k, v in per_run.items()},
+         launches_per_step={k: v / 2 for k, v in per_run.items()},
          max_memory_allocated=max(peaks), checkpoint_bytes=ckpt_bytes,
          checkpoint_total_bytes=sum(ckpt_bytes.values()),
          checkpoint_save_s=[saves[k][0] for k in sorted(saves)],
@@ -3060,6 +3155,312 @@ def phase_full_training(tensors: str, work: str):
          first_run_wall_s=first_wall, resume_run_wall_s=resume_wall,
          restored_bit_equal=True, launches=launches, need=need,
          seconds=time.time() - t_phase)
+    return launches
+
+
+# The full trainer's tp=2 and dp=2 updates (two gloo ranks sharing the
+# card) against the unsharded trainer's from the same weights and draws,
+# both bf16 on the card: the loss relative to itself, and the gradient the
+# optimizer took (summed over the mesh, clipped) as ||mesh - unsharded|| /
+# ||unsharded|| per family of parameters and over all of them. tp rounds
+# each row-parallel product's halves to bf16 before their sum, a rounding
+# the unsharded product does not make, in every layer's forward: the
+# gradients read 1.0-1.9e-2 on the card; dp rounds each rank's gradient
+# before their sum, 0.4-0.9e-2. The limit is the card-vs-CPU gradient
+# limit, TOL_TRAIN_GRAD. The control it must catch: a dp loss that is the
+# mean of the ranks' means (rows of 120 s and 60 s of valid frames; on the
+# card it read 0.10-0.13, and tp without the per-head q_norm / k_norm sum
+# read 0.69 in that family, a control the CPU tests keep).
+TOL_FULL_MESH = 5e-2
+# valid frames of the mesh batch's second row: a 60 s song padded to the
+# 120 s bucket, so a mean of the dp ranks' means differs from the mean
+MESH_ROW1_FRAMES = 1500
+
+
+def _family(name: str) -> str:
+    owner = name.split(".")[-2] if "." in name else name
+    if owner in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        return "attention"
+    if owner in ("q_norm", "k_norm"):
+        return "qk_norm"
+    if owner in ("gate", "up", "down"):
+        return "mlp"
+    return "other"
+
+
+def _grad_rel_l2(got, want) -> dict:
+    """||got - want|| / ||want|| per `_family` and over every gradient
+    ({name: tensor} each, on any device), in fp32 on the card."""
+    import torch
+
+    num, den = {}, {}
+    for name, w in want.items():
+        w = w.to("cuda", torch.float32)
+        d = got[name].to("cuda", torch.float32) - w
+        for fam in (_family(name), "all"):
+            num[fam] = num.get(fam, 0.0) + float(d.square().sum())
+            den[fam] = den.get(fam, 0.0) + float(w.square().sum())
+    return {f: math.sqrt(num[f] / den[f]) if den[f] else math.sqrt(num[f])
+            for f in num}
+
+
+def phase_full_training_mesh(tensors: str, work: str):
+    """The full trainer over a dp x tp mesh at full width (DiTConfig.turbo,
+    bf16, the default warmup, so the first update has lr 0) on phase 6's
+    two 120 s tensor files, one batch of both songs, the second cut to
+    MESH_ROW1_FRAMES valid frames; two updates each:
+
+    1. the unsharded trainer from a seeded DiT: losses, the gradients the
+       optimizer took (kept on the host) and their digests, peak memory;
+    2. a 1-rank NCCL mesh (`make_mesh(1, 1)` with its defaults) from the
+       same weights: losses and gradients bit-equal to step 1's;
+    3. a world of two gloo ranks sharing cuda:0 (NCCL refuses two ranks
+       on one card), started before the trainers' `make_mesh`: tp=2 (its
+       gradients gathered from both ranks to the unsharded layout), then
+       dp=2, each against step 1 (TOL_FULL_MESH for the loss and for each
+       family's gradient), with each rank's peak memory, seconds per
+       update and K1/K2/K3 launches per rank; the fault control (a dp
+       loss that is the mean of the ranks' means, one update) must
+       exceed the limit;
+    4. dp=2 saves a checkpoint at step 2 in the unsharded layout,
+       restored into an unsharded trainer bit-equal by `_state_digests`
+       to the state the trainer saved.
+
+    Step times are of ranks sharing one H100 through host memory, not of
+    several cards. Returns the launches, every rank's summed."""
+    import shutil
+
+    import torch
+
+    from acestep_torch.config import DiTConfig
+    from acestep_torch.models.dit import build_dit, init_dit_params
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.parallel import make_mesh
+    from acestep_torch.training.data import make_batches
+    from acestep_torch.training.trainer_full import (FullTrainer,
+                                                     FullTrainingConfig)
+
+    t_phase = time.time()
+    cfg = DiTConfig.turbo()
+    files = sorted(os.path.join(tensors, f) for f in os.listdir(tensors))
+    batches = []
+    for b in make_batches(files, 2, latent_dim=cfg.audio_acoustic_hidden_dim,
+                          shuffle=False, seed=0):
+        b["attention_mask"][1, MESH_ROW1_FRAMES:] = 0
+        batches.append(b)
+        if len(batches) == 2:
+            break
+    out = os.path.join(work, "full_mesh")
+    init = {n: p.cpu() for n, p in init_dit_params(
+        cfg, torch.Generator("cuda").manual_seed(0),
+        dtype=torch.bfloat16).state_dict().items()}
+    launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    kernels = ("K1", "K2", "K3")
+
+    def model():
+        m = build_dit(cfg, "cuda", torch.bfloat16)
+        m.load_state_dict(init)
+        return m
+
+    def tcfg(**kw):
+        return FullTrainingConfig(**{**dict(
+            checkpoint_every=0, max_steps=2, log_every=1, seed=0,
+            output_dir=out), **kw})
+
+    def run(trainer, n=2, want=None, host=True):
+        """n updates: losses, each update's gradients as digests (and with
+        `host` as host copies) or, with `want`, as `_grad_rel_l2` against
+        `want`'s; seconds per update."""
+        losses, digests, grads, secs = [], [], [], []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _step, loss, msg in trainer.train(iter(batches[:n])):
+            if not msg.startswith("step"):
+                continue                        # a checkpoint's event
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+            losses.append(loss)
+            g = trainer.gradients()
+            if want is None:
+                digests.append({k: _digest(v) for k, v in g.items()})
+                if host:
+                    grads.append({k: v.detach().to("cpu", copy=True)
+                                  for k, v in g.items()})
+            else:
+                grads.append(_grad_rel_l2(g, want[len(losses) - 1]))
+            del g
+            t0 = time.time()
+        return losses, digests, grads, secs
+
+    def counted(world_launches, fn):
+        """fn() with K1-K3 counted: rank 0's process counters and the
+        other ranks' command replies."""
+        fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+        before = world_launches() if world_launches else None
+        result = fn()
+        own = [fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv]
+        ranks = {k: [own[i]] for i, k in enumerate(kernels)}
+        if before is not None:
+            after = world_launches()
+            for k in kernels:
+                ranks[k] += [a - b for a, b in
+                             zip(after[k][1:], before[k][1:])]
+        for k in kernels:
+            launches[k] += sum(ranks[k])
+        return result, ranks
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 1: the unsharded trainer
+    torch.cuda.reset_peak_memory_stats()
+    ref = FullTrainer(model(), cfg, tcfg())
+    (want_loss, want_digests, want, ref_s), ref_ranks = counted(
+        None, lambda: run(ref))
+    ref_peak = torch.cuda.max_memory_allocated()
+    del ref
+    free()
+    emit(phase="full_training_mesh", part="unsharded", rows=2,
+         valid_frames=[3000, MESH_ROW1_FRAMES], losses=want_loss,
+         s_per_update=ref_s, max_memory_allocated=ref_peak,
+         launches_per_rank=ref_ranks, seconds=time.time() - t_phase)
+
+    # -- 2: one NCCL rank, the defaults
+    t0 = time.time()
+    mesh = make_mesh(1, 1)
+    start = time.time() - t0
+    try:
+        trainer = FullTrainer(model(), cfg, tcfg(), mesh=mesh)
+        (losses, digests, _, secs), ranks = counted(
+            mesh.launches, lambda: run(trainer, host=False))
+        backend = mesh.backend
+        trainer.close()
+        del trainer
+    finally:
+        mesh.close()
+    free()
+    equal = losses == want_loss and digests == want_digests
+    emit(phase="full_training_mesh", part="nccl_1x1", backend=backend,
+         startup_s=start, losses=losses, bit_equal=equal, s_per_update=secs,
+         launches_per_rank=ranks, seconds=time.time() - t_phase)
+    if backend != "nccl" or not equal:
+        raise AssertionError(f"full mesh 1x1 ({backend}): losses {losses} "
+                             f"against {want_loss}, gradients bit-equal "
+                             f"{digests == want_digests}")
+
+    # -- 3, 4: two gloo ranks on cuda:0
+    t0 = time.time()
+    anchor = make_mesh(2, 1, devices=["cuda:0", "cuda:0"], backend="gloo")
+    spawn = time.time() - t0
+    saved = {}
+    real_state_dicts = FullTrainer.state_dicts
+
+    def digested_save(self):
+        """state_dicts() as save() takes them, digested on the way."""
+        t1 = time.time()
+        states = real_state_dicts(self)
+        saved.update(digests=_state_digests(*states),
+                     step=self.step, gather_s=time.time() - t1)
+        return states
+
+    def mean_of_means(batch, dp):
+        m = batch["attention_mask"]
+        n = m.shape[0] // dp
+        return [dp * float(m[d * n:(d + 1) * n].sum())
+                * batch["hidden_states"].shape[-1] for d in range(dp)]
+
+    try:
+        for axis, (dp, tp) in (("tp", (1, 2)), ("dp", (2, 1))):
+            ckpt = axis == "dp"
+            anchor.gather(torch.cuda.reset_peak_memory_stats)
+            t0 = time.time()
+            trainer = FullTrainer(model(), cfg, tcfg(
+                mesh_dp=dp, mesh_tp=tp, checkpoint_every=2 if ckpt else 0))
+            install_s = time.time() - t0
+            with mock.patch.object(FullTrainer, "state_dicts",
+                                   digested_save):
+                (losses, _, errs, secs), ranks = counted(
+                    anchor.launches, lambda: run(trainer, want=want))
+            peaks = anchor.gather(torch.cuda.max_memory_allocated)
+            trainer.close()
+            del trainer
+            free()
+            loss_err = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                                            want_loss)]
+            rec = dict(phase="full_training_mesh", part=f"gloo_{axis}2",
+                       dp=dp, tp=tp, spawn_s=spawn, install_s=install_s,
+                       losses=losses, loss_rel_err=loss_err,
+                       grad_rel_l2=errs, tol=TOL_FULL_MESH,
+                       s_per_update=secs, max_memory_allocated_per_rank=peaks,
+                       plain_max_memory_allocated=ref_peak,
+                       launches_per_rank=ranks,
+                       note="gloo, ranks sharing one H100")
+            worst = max(max(e.values()) for e in errs)
+            if ckpt:
+                # the fault control: one update with the loss as the mean
+                # of the dp ranks' means
+                with mock.patch.object(FullTrainer, "_counts",
+                                       staticmethod(mean_of_means)):
+                    trainer = FullTrainer(model(), cfg, tcfg(mesh_dp=dp,
+                                                             mesh_tp=tp))
+                    (_, _, bad, _), _ = counted(
+                        anchor.launches, lambda: run(trainer, n=1,
+                                                     want=want))
+                trainer.close()
+                del trainer
+                free()
+                rec.update(control="the dp loss as the mean of the ranks' "
+                                   "means", control_rel_l2=bad[0])
+            if not (worst < TOL_FULL_MESH and max(loss_err) < TOL_FULL_MESH
+                    and max(rec.get("control_rel_l2", {"": 1.0}).values())
+                    > TOL_FULL_MESH):
+                emit(**rec)
+                raise AssertionError(
+                    f"full mesh {axis}=2: gradient rel L2 {errs}, loss rel "
+                    f"err {loss_err} (tol {TOL_FULL_MESH}); control "
+                    f"{rec.get('control_rel_l2')} must exceed it")
+            need = cfg.num_hidden_layers
+            short = {k: v for k, v in ranks.items()
+                     if min(v) < (4 if k == "K1" else 2) * need}
+            if short:
+                raise AssertionError(f"full mesh {axis}=2 launches per rank "
+                                     f"{short}")
+            if ckpt:
+                # the mesh's checkpoint into an unsharded trainer
+                shell = build_dit(cfg, "cuda", torch.bfloat16)
+                plain = FullTrainer(shell, cfg, tcfg(checkpoint_every=2))
+                t0 = time.time()
+                restored = plain.restore()
+                torch.cuda.synchronize()
+                restore_s = time.time() - t0
+                same = restored and plain.step == saved["step"] == 2 and \
+                    _state_digests(shell.state_dict(),
+                                   plain.optimizer.state_dict()) == \
+                    saved["digests"]
+                del plain, shell
+                free()
+                rec.update(checkpoint_state_s=saved["gather_s"],
+                           checkpoint_restore_s=restore_s,
+                           checkpoint_restored_bit_equal=same,
+                           checkpoint_bytes=sum(
+                               os.path.getsize(os.path.join(
+                                   out, "checkpoints", "2", f))
+                               for f in ("model.pt", "opt_state.pt")))
+                shutil.rmtree(out)
+                if not same:
+                    raise AssertionError("full mesh dp=2: the checkpoint "
+                                         "did not restore bit-equal into an "
+                                         "unsharded trainer")
+            rec["seconds"] = time.time() - t_phase
+            emit(**rec)
+    finally:
+        anchor.close()
+        shutil.rmtree(out, ignore_errors=True)
+    del want, init
+    free()
+    emit(phase="full_training_mesh", seconds=time.time() - t_phase,
+         launches=launches)
     return launches
 
 
@@ -3363,12 +3764,12 @@ def main() -> None:
     del handler
     gc.collect()
     torch.cuda.empty_cache()
-    training, adapter, rest_training, full, estimate = \
+    training, adapter, rest_training, full, full_mesh, estimate = \
         phase_training(k4_per_song)
     launches = {k: text2music[k] + tasks[k] + checkpoint[k] + planner[k]
                 + serving[k] + dataset[k] + mesh[k] + quant[k] + lrc[k]
                 + training[k] + adapter[k] + rest_training[k] + full[k]
-                + estimate[k] for k in training}
+                + full_mesh[k] + estimate[k] for k in training}
 
     def row(name, source, replaces, cases, rep, n):
         return {"name": name, "route": "cuda", "source": source,
@@ -3399,4 +3800,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tier"]:
+        phase_tier(int(sys.argv[2]))
+    else:
+        main()

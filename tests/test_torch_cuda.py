@@ -872,3 +872,92 @@ def test_default_mesh_counts_each_card_once(cuda_device, tmp_path):
         h.release_mesh()
     if cards == 1:
         np.testing.assert_array_equal(got.pred_latents, want.pred_latents)
+
+
+def test_full_trainer_one_rank_nccl_mesh_equals_plain(cuda_device, tmp_path):
+    """Two full-parameter updates over a 1-rank NCCL mesh (`make_mesh(1,
+    1)` with its defaults) are the plain trainer's bit for bit: the same
+    losses, gradients and weights; the rank's K1-K3 launches come back in
+    the command replies."""
+    from acestep_torch.parallel import make_mesh
+    from acestep_torch.training.trainer_full import (FullTrainer,
+                                                     FullTrainingConfig)
+    from torch_mesh_helpers import store_under
+
+    cfg, gpu, _cpu, batch, draws = _train_pair(cuda_device)
+    init = {n: p.clone() for n, p in gpu.state_dict().items()}
+    tc = FullTrainingConfig(warmup_steps=1, max_steps=2, checkpoint_every=0,
+                            log_every=1)
+    runs = {}
+    with store_under(tmp_path):
+        mesh = make_mesh(1, 1)
+    try:
+        assert (mesh.backend, mesh.devices) == (
+            "nccl", [torch.device("cuda", 0)])
+        for name in ("plain", "mesh"):
+            gpu.load_state_dict(init)
+            t = FullTrainer(gpu, cfg, tc, mesh=mesh if name == "mesh"
+                            else None)
+            before = mesh.launches()
+            out = []
+            for _step, loss, _ in t.train(iter([batch, batch]),
+                                          draws=iter([draws, draws])):
+                out.append((loss, {n: g.clone()
+                                   for n, g in t.gradients().items()}))
+            runs[name] = (out, {n: p.detach().clone()
+                                for n, p in gpu.named_parameters()})
+            if name == "mesh":
+                ran = {k: v[0] - before[k][0]
+                       for k, v in mesh.launches().items()}
+                assert all(ran[k] >= 2 * cfg.num_hidden_layers
+                           for k in ("K1", "K2", "K3")), ran
+            t.close()
+    finally:
+        mesh.close()
+    (plain, pw), (got, gw) = runs["plain"], runs["mesh"]
+    for (pl, pg), (gl, gg) in zip(plain, got):
+        assert pl == gl
+        assert all(torch.equal(pg[n], gg[n]) for n in pg)
+    assert all(torch.equal(pw[n], gw[n]) for n in pw)
+
+
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 1)])
+def test_full_trainer_gloo_mesh_on_one_card_matches_plain(cuda_device,
+                                                          tmp_path, dp, tp):
+    """A full-parameter update over two ranks sharing the card (gloo) at
+    tp=2 (K1-K3 at 2 query / 1 KV heads) and at dp=2 (one row a rank):
+    the loss and the gradient the optimizer took within 2e-2 (relative
+    L2 over all parameters, chip_smoke's TOL_FULL_MESH) of the plain
+    update's; every rank launches K1-K3."""
+    from acestep_torch.parallel import make_mesh
+    from acestep_torch.training.trainer_full import (FullTrainer,
+                                                     FullTrainingConfig)
+    from torch_mesh_helpers import store_under
+
+    cfg, gpu, _cpu, batch, draws = _train_pair(cuda_device)
+    init = {n: p.clone() for n, p in gpu.state_dict().items()}
+    runs = {}
+    with store_under(tmp_path):
+        world = make_mesh(2, 1, devices=[cuda_device] * 2, backend="gloo")
+    try:
+        for name, (d, t) in (("plain", (1, 1)), ("mesh", (dp, tp))):
+            gpu.load_state_dict(init)
+            trainer = FullTrainer(gpu, cfg, FullTrainingConfig(
+                warmup_steps=1, max_steps=1, checkpoint_every=0,
+                log_every=1, mesh_dp=d, mesh_tp=t))
+            before = world.launches()
+            loss = next(trainer.train(iter([batch]),
+                                      draws=iter([draws])))[1]
+            runs[name] = (loss, {n: g.float().cpu() for n, g in
+                                 trainer.gradients().items()})
+            ran = {k: [a - b for a, b in zip(v, before[k])]
+                   for k, v in world.launches().items()}
+            trainer.close()
+    finally:
+        world.close()
+    (pl, pg), (ml, mg) = runs["plain"], runs["mesh"]
+    assert abs(ml - pl) / abs(pl) < 2e-2
+    assert _global_rel(mg, pg) < 2e-2
+    need = {"K1": 2 * cfg.num_hidden_layers, "K2": cfg.num_hidden_layers,
+            "K3": cfg.num_hidden_layers}
+    assert all(min(ran[k]) >= n for k, n in need.items()), ran

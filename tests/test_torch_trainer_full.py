@@ -40,6 +40,7 @@ from acestep_torch.training.trainer_full import (FullTrainer,
                                                  FullTrainingConfig,
                                                  warmup_cosine_lr)
 from acestep_torch.utils.weights import dit_from_jax
+from torch_mesh_helpers import cpu_world
 from torch_parity import (B, T, batch_inputs, highest, jax_draws, np_tree,
                           port_cfg, tiny_dit_cfg)
 
@@ -219,12 +220,24 @@ def test_resume_continues_like_jax(models, tmp_path):
     assert t2.step == 6 and all(np.isfinite(e[1]) for e in events2)
 
 
+@pytest.fixture(scope="module")
+def one_rank_world(tmp_path_factory):
+    """A world of one CPU rank, open for the module."""
+    yield from cpu_world(tmp_path_factory.mktemp("one_rank"), ranks=1)
+
+
 @pytest.mark.parametrize("dp,tp", [(2, 1), (1, 2), (2, 2)])
-def test_mesh_raises_by_name(models, dp, tp):
+def test_mesh_raises_by_name(models, one_rank_world, dp, tp):
+    """A mesh larger than the world's devices raises by name (the trainer
+    trains over a mesh: `test_torch_trainer_full_mesh.py`), and leaves
+    the world as it was."""
     _cfg, jparams, tcfg = models
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(ValueError, match=f"mesh dp={dp} x tp={tp} needs "
+                                         f"{dp * tp} ranks, but this "
+                                         "process's world has 1"):
         FullTrainer(_port_model(tcfg, jparams), tcfg,
                     FullTrainingConfig(mesh_dp=dp, mesh_tp=tp))
+    assert one_rank_world.world.users == 1 and not one_rank_world.down
 
 
 # ------------------------------------------------------------------
