@@ -124,6 +124,16 @@ Between phases 5 and 6, on phase 5's full-width handler:
   capture pass card against CPU; the PMI reward score of the quant
   phase's codes under a 2-layer LM, card against CPU.
 
+Before phase 6, `tools`: the tools beside the package as their users run
+them, each a process of its own from the repo root: `scripts/check_gpu.py
+--smoke` (the environment doctor; K1 full and banded and K4 against their
+plain versions under the limits below), `profile_inference_torch.py`'s
+`profile` of a 30 s turbo request at full width, its `understand` and its
+8 GB `tier-test` (a child process whose allocator is capped at 7 GiB
+before any handler), and `scripts/profile_vram.py`'s 30 s request; each
+report must name this card, and its renders' K1 and K4 launches join the
+kernel table's counts.
+
 Phase 6 goes on with `rest_training`: `/v1/training/start` for 2 LoRA
 steps at full width on the tensors phase 6 preprocessed (K1, K2, K3
 counted), `/v1/training/status` polled until done, the written adapter
@@ -149,8 +159,9 @@ their `tasks`, `adapter`, `rest_training`, `full_training`,
 measured thinking requests, the serving, dataset and mesh phases (the
 meshes' follower ranks' launches summed in, as their command replies
 return them), the quant phase's measured renders and its tier children's
-measured requests (as the children report them), and the lrc request. The last two lines are the kernel
-table and {"ok": true, "device": ...}.
+measured requests (as the children report them), the lrc request and the
+tools phase's renders (as the tools report them). The last two lines are
+the kernel table and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -2935,6 +2946,142 @@ def phase_lrc(turbo, codes: str):
     return launches
 
 
+# ------------------------------------------------------------------
+# tools: the port's tools around the package, each run as its user runs
+# it, a process of its own from the repo root
+# ------------------------------------------------------------------
+
+TOOLS_SECONDS = 30.0       # the profiler's and the memory profiler's song
+# K1's launches a render of the turbo DiT: 24 layers a decoder step
+K1_PER_STEP = 24
+
+
+def _run_tool(argv, timeout: float = 300.0, env=None) -> str:
+    """`python3 <argv>` from the repo root; returns its stdout. A non-zero
+    exit raises with the end of both streams."""
+    proc = subprocess.run(
+        [sys.executable, *argv], cwd=os.path.dirname(os.path.abspath(
+            __file__)), capture_output=True, text=True, timeout=timeout,
+        env=env)
+    if proc.returncode:
+        raise AssertionError(f"tools: {' '.join(argv)} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _tool_report(argv, card: str, want_k1: int, want_k4: int) -> dict:
+    """A tool's JSON report; its device must be this card (name and power
+    limit) and its K1 / K4 launches at least the floors."""
+    rep = json.loads(_run_tool(argv))
+    dev = rep["device"]
+    k1, k4 = dev["launches"]["K1"], dev["launches"]["K4"]
+    if dev.get("card") != card or k1 < want_k1 or k4 < want_k4:
+        raise AssertionError(f"tools: {' '.join(argv)}: device {dev}; want "
+                             f"card {card!r}, K1 >= {want_k1}, K4 >= "
+                             f"{want_k4}")
+    return rep
+
+
+def _vram_estimate(seconds: float) -> dict:
+    """`scripts/profile_vram.py`'s analytic estimate of a `seconds` turbo
+    request at batch 1, for the card's handler: its modules built on the
+    meta device, so nothing is allocated."""
+    import torch
+
+    from acestep_torch.models.dit import build_dit
+    from acestep_torch.models.vae import OobleckVAE
+    from acestep_torch.pipeline.handler import AceStepHandler
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import profile_vram
+
+    h = AceStepHandler(dtype=torch.bfloat16)
+    h.model = build_dit(h.cfg, "meta", torch.bfloat16)
+    h.vae = OobleckVAE(h.vae_cfg, device="meta", dtype=torch.bfloat16)
+    return profile_vram.analytic_estimate(h, seconds, 1)
+
+
+def phase_tools(card: str) -> dict:
+    """The tools beside the package, each a subprocess as a user runs it:
+    the environment doctor's `--smoke` (K1 full and banded, K4, against
+    their plain versions, under chip_smoke's limits, every check [ok]);
+    the profiler's `profile` of a 30 s turbo request at full width (cold
+    and warm), its `understand` (the tiny planner) and its 8 GB
+    `tier-test` (a child process capped at 7 GiB before any handler);
+    and the memory profiler's 30 s request. Each report names this card;
+    the renders' K1 and K4 launches (as the tools report them) are the
+    phase's launches. The doctor's launches compare kernels with their
+    plain versions and do not count."""
+    t0 = time.time()
+    # the doctor probes the hubs when no checkpoint is found: offline here
+    env = dict(os.environ, HF_HUB_OFFLINE="1")
+    t = time.time()
+    text = _run_tool(["scripts/check_gpu.py", "--smoke"], env=env)
+    smoke = [line for line in text.splitlines()
+             if line.startswith(("[ok]   K1", "[ok]   K4"))]
+    if "[RESULT] environment looks good" not in text or len(smoke) != 3:
+        raise AssertionError(f"tools: check_gpu.py --smoke:\n{text[-3000:]}")
+    emit(phase="tools", tool="check_gpu --smoke", wall_s=time.time() - t,
+         smoke=smoke, card=card)
+
+    steps = 8
+    t = time.time()
+    profile = _tool_report(
+        ["profile_inference_torch.py", "--mode", "profile", "--duration",
+         str(TOOLS_SECONDS), "--steps", str(steps)], card,
+        2 * steps * K1_PER_STEP, 2)
+    for run in ("cold", "warm"):
+        r = profile[run]
+        if (r["duration_s"], r["batch"], r["steps"]) != (
+                TOOLS_SECONDS, 1, steps) or "batch_clamped_to" in r \
+                or not r["wall_s"] > 0:
+            raise AssertionError(f"tools: profile {run}: {r}")
+    emit(phase="tools", tool="profile_inference_torch --mode profile",
+         wall_s=time.time() - t, report=profile)
+
+    t = time.time()
+    understand = _tool_report(
+        ["profile_inference_torch.py", "--mode", "understand"], card, 0, 0)
+    if not isinstance(understand["output"], dict):
+        raise AssertionError(f"tools: understand: {understand}")
+    understand["output"] = sorted(understand["output"])
+    emit(phase="tools", tool="profile_inference_torch --mode understand",
+         wall_s=time.time() - t, report=understand)
+
+    t = time.time()
+    # the tier's 10 s request asks for 4 steps; turbo renders its 8-step
+    # schedule whatever the steps (both packages)
+    tier = _tool_report(
+        ["profile_inference_torch.py", "--mode", "tier-test", "--tiers", "8"],
+        card, steps * K1_PER_STEP, 1)
+    row = tier["tiers"][0]
+    if not row["ok"] or row["tier"] != "tier_8g" or row["cap_gb"] != 7.0 \
+            or row["max_memory_reserved_gb"] > row["cap_gb"]:
+        raise AssertionError(f"tools: tier-test 8: {row}")
+    emit(phase="tools", tool="profile_inference_torch --mode tier-test "
+         "--tiers 8", wall_s=time.time() - t, report=tier)
+
+    t = time.time()
+    vram = _tool_report(
+        ["scripts/profile_vram.py", "--durations", str(TOOLS_SECONDS),
+         "--batches", "1"], card, steps * K1_PER_STEP, 1)
+    row = vram["stages"][0]
+    if not (0 < row["peak_gb"] <= row["limit_gb"]
+            and row["in_use_gb"] <= row["limit_gb"]):
+        raise AssertionError(f"tools: profile_vram: {row}")
+    emit(phase="tools", tool="profile_vram", wall_s=time.time() - t,
+         report=vram, analytic_estimate=_vram_estimate(TOOLS_SECONDS))
+
+    launches = {k: sum(r["device"]["launches"][k]
+                       for r in (profile, understand, tier, vram))
+                for k in ("K1", "K4")}
+    launches.update(K2=0, K3=0)
+    emit(phase="tools", seconds=time.time() - t0, launches=launches)
+    return launches
+
+
 def _steps(metrics_path: str):
     """(steps, losses, first timestamp of each step) from metrics.jsonl."""
     first = {}
@@ -3764,12 +3911,13 @@ def main() -> None:
     del handler
     gc.collect()
     torch.cuda.empty_cache()
+    tools = phase_tools(_card())
     training, adapter, rest_training, full, full_mesh, estimate = \
         phase_training(k4_per_song)
     launches = {k: text2music[k] + tasks[k] + checkpoint[k] + planner[k]
                 + serving[k] + dataset[k] + mesh[k] + quant[k] + lrc[k]
-                + training[k] + adapter[k] + rest_training[k] + full[k]
-                + full_mesh[k] + estimate[k] for k in training}
+                + tools[k] + training[k] + adapter[k] + rest_training[k]
+                + full[k] + full_mesh[k] + estimate[k] for k in training}
 
     def row(name, source, replaces, cases, rep, n):
         return {"name": name, "route": "cuda", "source": source,

@@ -1,5 +1,8 @@
-"""The port stands alone: importing every acestep_torch module, and the
-chip smoke script, pulls in neither JAX nor the JAX package."""
+"""The port stands alone: importing every acestep_torch module, the chip
+smoke script and the port's tools (the environment doctor, the profiler
+harness, the memory profiler) pulls in neither JAX nor the JAX package;
+the real-checkpoint parity harness is the one tool that imports both, as
+it compares them."""
 
 import subprocess
 import sys
@@ -40,6 +43,30 @@ def test_every_port_module_imports_without_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_port_tools_import_without_jax():
+    res = _run("import sys\n"
+               "sys.path.insert(0, 'scripts')\n"
+               "import check_gpu, profile_inference_torch, profile_vram\n"
+               "assert not any(m == 'jax' or m.startswith(('jax.', "
+               "'acestep_tpu')) for m in sys.modules)\n")
+    assert res.returncode == 0, res.stderr
+
+
+def test_only_the_parity_harness_imports_both_packages():
+    """The scan's list of tools is every tool of the port: each
+    `*_torch.py` tool and the new scripts are in one of the two lists, and
+    the parity harness is the one that names the JAX package."""
+    tools = {str(p.relative_to(ROOT)) for p in ROOT.glob("*_torch.py")} | {
+        str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob("*.py")
+        if p.name in ("check_gpu.py", "profile_vram.py")
+        or p.name.endswith("_torch.py") or p.name.startswith("torch_")}
+    assert tools == set(PORT_TOOLS + COMPARES_BOTH)
+    for rel in COMPARES_BOTH:
+        src = (ROOT / rel).read_text()
+        assert {m.split(".")[0] for _, m in _jax_imports(src, rel)} == {
+            "jax", "acestep_tpu"}
+
+
 def test_chip_smoke_imports_without_jax():
     res = _run("import sys, chip_smoke\n"
                "assert not any(m == 'jax' or m.startswith(('jax.', "
@@ -47,10 +74,18 @@ def test_chip_smoke_imports_without_jax():
     assert res.returncode == 0, res.stderr
 
 
+# the port's tools beside the package: none imports JAX or the JAX package
+PORT_TOOLS = ["scripts/check_gpu.py", "profile_inference_torch.py",
+              "scripts/profile_vram.py", "scripts/torch_lm_profile.py",
+              "scripts/torch_train_profile.py"]
+# the one tool that compares the two packages, so imports both
+COMPARES_BOTH = ["scripts/parity_real_torch.py"]
+
+
 def _import_scan_files():
     return sorted(str(p.relative_to(ROOT))
                   for p in (ROOT / "acestep_torch").rglob("*.py")) + [
-        "chip_smoke.py"]
+        "chip_smoke.py"] + PORT_TOOLS
 
 
 def _forbidden(name: str) -> bool:
