@@ -61,11 +61,12 @@ class DiTConfig:
 
     model_version: str = "turbo"    # turbo | base | sft
 
-    # Kept so configs built for the JAX package construct unchanged. The
-    # port reads neither: on a CUDA device every decoder self-attention
-    # goes through the flash kernel (ops/flash_attention.py), and the
-    # layer stack is always a Python loop.
+    # The decoder's self-attention (models/dit.resolve_attention_impl):
+    # "auto" and "flash" take the flash kernel (ops/flash_attention.py) on
+    # a CUDA device, "dense" the plain masked attention.
     attention_impl: str = "auto"
+    # Kept so configs built for the JAX package construct unchanged; the
+    # port's layer stack is always a Python loop.
     unroll_layers: bool = False
 
     def __post_init__(self):

@@ -14,7 +14,8 @@ the forward passes are functions over it, as in the JAX package:
 - the decoder's self-attention goes through `ops.flash_attention` in every
   layer at every length: the hand-written kernel on a CUDA device, its
   dense plain version on the CPU. Layers alternate banded (|i-j| <= W) and
-  full attention.
+  full attention. A config whose `attention_impl` is "dense" takes the
+  plain masked attention instead (`resolve_attention_impl`).
 """
 
 from __future__ import annotations
@@ -426,6 +427,34 @@ def decoder_cross_kv(model: AceStepDiT, cfg: DiTConfig, enc: torch.Tensor):
     return torch.stack(ks), torch.stack(vs)
 
 
+ATTENTION_IMPLS = ("auto", "flash", "dense")
+
+
+def resolve_attention_impl(cfg: DiTConfig) -> str:
+    """The decoder's self-attention for `cfg.attention_impl`: "flash" (the
+    flash kernel on a CUDA device, its plain version on the CPU) for
+    "auto" and "flash", "dense" (the plain masked attention, as the JAX
+    package's "dense") only when the config names it."""
+    if cfg.attention_impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention_impl {cfg.attention_impl!r}: expected "
+                         f"one of {ATTENTION_IMPLS}")
+    return "dense" if cfg.attention_impl == "dense" else "flash"
+
+
+def _self_attention_fn(cfg: DiTConfig, L: int, rope, device):
+    """fn(attn_module, x, window) -> the decoder's self-attention output,
+    by `resolve_attention_impl(cfg)`; the dense masks are built once."""
+    heads = dict(num_heads=cfg.num_attention_heads,
+                 num_kv_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim,
+                 rope=rope, eps=cfg.rms_norm_eps)
+    if resolve_attention_impl(cfg) == "flash":
+        return lambda ap, x, window: attention_flash(ap, x, window=window,
+                                                     **heads)
+    masks = {w: bidirectional_mask(L, window=w, device=device)
+             for w in (None, cfg.sliding_window)}
+    return lambda ap, x, window: attention(ap, x, mask=masks[window], **heads)
+
+
 def dit_decoder(model: AceStepDiT, cfg: DiTConfig, xt: torch.Tensor,
                 timestep: torch.Tensor, timestep_r: torch.Tensor,
                 context_latents: torch.Tensor,
@@ -433,7 +462,8 @@ def dit_decoder(model: AceStepDiT, cfg: DiTConfig, xt: torch.Tensor,
                 cross_kv_cache=None, remat: bool = False) -> torch.Tensor:
     """One denoising forward: (B, T, 64) noisy latents -> (B, T, 64)
     velocity. Self-attention uses geometry-only full/banded attention
-    through the flash kernel; cross-attention is unmasked.
+    through the flash kernel (the plain masked attention when
+    `cfg.attention_impl` is "dense"); cross-attention is unmasked.
 
     remat=True checkpoints each layer (`torch.utils.checkpoint`,
     non-reentrant): its activations are recomputed in the backward, as the
@@ -462,6 +492,7 @@ def dit_decoder(model: AceStepDiT, cfg: DiTConfig, xt: torch.Tensor,
         enc = linear(p.condition_embedder, encoder_hidden_states.to(dtype))
     rope = rope_cos_sin(L, cfg.head_dim, cfg.rope_theta, dtype=dtype,
                         device=h.device)
+    self_attention = _self_attention_fn(cfg, L, rope, h.device)
 
     def layer(i: int, lp: DiTLayer, h: torch.Tensor) -> torch.Tensor:
         mods = lp.scale_shift_table[None].to(dtype) + tproj   # (B, 6, H)
@@ -470,12 +501,8 @@ def dit_decoder(model: AceStepDiT, cfg: DiTConfig, xt: torch.Tensor,
         norm_h = rms_norm(lp.self_attn_norm, h, eps) * (1 + scale_msa) \
             + shift_msa
         window = cfg.sliding_window if cfg.layer_is_sliding(i) else None
-        a = attention_flash(lp.self_attn, norm_h.to(dtype),
-                            num_heads=cfg.num_attention_heads,
-                            num_kv_heads=cfg.num_key_value_heads,
-                            head_dim=cfg.head_dim, rope=rope, window=window,
-                            eps=eps)
-        h = h + a * gate_msa
+        h = h + self_attention(lp.self_attn, norm_h.to(dtype),
+                               window) * gate_msa
 
         norm_h = rms_norm(lp.cross_attn_norm, h, eps)
         if cross_kv_cache is None:
@@ -517,7 +544,7 @@ def dit_decoder_attn_capture(model: AceStepDiT, cfg: DiTConfig,
     probabilities: {layer: (B, len(heads), Tq, Tk) fp32} for `capture`'s
     {layer: [heads]} (the LRC alignment's early-exit pass). Cross-attention
     takes the plain path, whose probabilities are the output;
-    self-attention goes through the flash kernel as in `dit_decoder`."""
+    self-attention is `dit_decoder`'s."""
     if not capture:
         raise ValueError("capture must map at least one layer -> heads")
     p = model.decoder
@@ -543,6 +570,7 @@ def dit_decoder_attn_capture(model: AceStepDiT, cfg: DiTConfig,
     enc = linear(p.condition_embedder, encoder_hidden_states.to(dtype))
     rope = rope_cos_sin(L, cfg.head_dim, cfg.rope_theta, dtype=dtype,
                         device=h.device)
+    self_attention = _self_attention_fn(cfg, L, rope, h.device)
     heads = dict(num_heads=cfg.num_attention_heads,
                  num_kv_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim,
                  eps=eps)
@@ -556,8 +584,8 @@ def dit_decoder_attn_capture(model: AceStepDiT, cfg: DiTConfig,
         norm_h = rms_norm(lp.self_attn_norm, h, eps) * (1 + scale_msa) \
             + shift_msa
         window = cfg.sliding_window if cfg.layer_is_sliding(i) else None
-        h = h + attention_flash(lp.self_attn, norm_h.to(dtype), rope=rope,
-                                window=window, **heads) * gate_msa
+        h = h + self_attention(lp.self_attn, norm_h.to(dtype),
+                               window) * gate_msa
 
         norm_h = rms_norm(lp.cross_attn_norm, h, eps)
         ca, probs = attention(lp.cross_attn, norm_h, kv_src=enc,

@@ -10,7 +10,8 @@ so the exit code is non-zero and no result line is printed:
    no CUDA device is an error.
 2. build: the hand-written kernels of acestep_torch/csrc, built with nvcc.
 3. kernels: K1 (flash attention; also at the guided sampler's doubled
-   batch, (2, 750) full and banded), K4 (snake + conv stack) and the flash
+   batch, (2, 750) full and banded, and at a 600 s song's 7500 patches,
+   (1, 7500) and (2, 7500) full), K4 (snake + conv stack) and the flash
    backward's K2 (dQ) and K3 (dK/dV) against their plain PyTorch versions
    at the shapes the main paths give them, with kernel, plain-version and
    library times (CUDA events around calls queued behind a spin kernel,
@@ -36,8 +37,9 @@ so the exit code is non-zero and no result line is printed:
    control run (the warmup left out) the update limit must catch.
 5. end to end: full-width turbo text2music (DiTConfig.turbo(), VAEConfig(),
    bf16, seeded random weights) through acestep_torch.inference.
-   generate_music, three requests; the kernels' launch counters show the
-   path went through K1 and K4.
+   generate_music, three requests, then one 600 s request through the
+   handler (finite audio of 600 x 48000 samples a channel); the kernels'
+   launch counters show the path went through K1 and K4.
    Then `tasks`, at the same width and sharing phase 5's VAE: a base
    request (60 s, 50 steps, CFG 7 with APG, ODE) and an sft one (30 s, 8
    custom timesteps, ADG, SDE) through the facade; on a seeded 60 s song,
@@ -132,7 +134,12 @@ plain versions under the limits below), `profile_inference_torch.py`'s
 8 GB `tier-test` (a child process whose allocator is capped at 7 GiB
 before any handler), and `scripts/profile_vram.py`'s 30 s request; each
 report must name this card, and its renders' K1 and K4 launches join the
-kernel table's counts.
+kernel table's counts. Then `bench`: `bench_torch.py --headline-only`
+as a process of its own (the port's benchmark program's headline: one 60
+s song at batch 1, full width): its JSON line printed twice, a wall > 0,
+0 < mfu_pct <= 100 against this card's published peak, this card's name
+and power limit, and one song's K1 (192) and K4 (one a C <= 256 decoder
+level) launches, which join the kernel table's counts.
 
 Phase 6 goes on with `rest_training`: `/v1/training/start` for 2 LoRA
 steps at full width on the tensors phase 6 preprocessed (K1, K2, K3
@@ -159,8 +166,9 @@ their `tasks`, `adapter`, `rest_training`, `full_training`,
 measured thinking requests, the serving, dataset and mesh phases (the
 meshes' follower ranks' launches summed in, as their command replies
 return them), the quant phase's measured renders and its tier children's
-measured requests (as the children report them), the lrc request and the
-tools phase's renders (as the tools report them). The last two lines are
+measured requests (as the children report them), the lrc request, the
+tools phase's renders (as the tools report them) and the bench
+headline's song. The last two lines are
 the kernel table and {"ok": true, "device": ...}.
 """
 
@@ -617,7 +625,10 @@ def phase_kernels():
           _k1_case(2, 1500, None, 3), _k1_case(2, 1500, 128, 4),
           _k1_case(1, 1001, 128, 5), _k1_case(1, 1001, None, 6),
           # the guided sampler's doubled batch: a 60 s song under CFG
-          _k1_case(2, 750, None, 16), _k1_case(2, 750, 128, 17)]
+          _k1_case(2, 750, None, 16), _k1_case(2, 750, 128, 17),
+          # a 600 s song's 7500 patches, turbo and under CFG (the plain
+          # version holds 16 x 7500^2 fp32 logits a row, 3.6 GB)
+          _k1_case(1, 7500, None, 19), _k1_case(2, 7500, None, 20)]
     k4 = [_k4_case(4, 491520, 128, 7), _k4_case(4, 245760, 128, 8),
           _k4_case(4, 61440, 256, 9), _k4_case(3, 100003, 128, 10),
           _k4_case(2, 7001, 256, 11)]
@@ -1000,6 +1011,25 @@ def phase_end_to_end():
                        max_memory_allocated=torch.cuda.max_memory_allocated(),
                        time_costs=res.extra_outputs["time_costs"])
             emit(**rec)
+    # the longest song the system takes: 600 s, 15000 latent frames, K1 at
+    # L = 7500 in every full layer; through the handler, no save
+    k1_before, k4_before = fa.launches, sc.launches
+    torch.cuda.reset_peak_memory_stats()
+    t_req = time.time()
+    res = handler.generate_music("ambient drone, slow evolving pads",
+                                 "[Instrumental]", audio_duration=600.0,
+                                 seeds=44)
+    wall = time.time() - t_req
+    _check_audio("b1_600s", res.audios, 600 * 48000)
+    k1, k4 = fa.launches - k1_before, sc.launches - k4_before
+    if k1 < need_k1 or k4 < need_k4:
+        raise AssertionError(f"b1_600s: K1 launched {k1} times (need >= "
+                             f"{need_k1}), K4 {k4} times (need >= "
+                             f"{need_k4})")
+    emit(phase="end_to_end", request="b1_600s", duration=600.0, batch=1,
+         wall_s=wall, k1_launches=k1, k4_launches=k4,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         time_costs=res.time_costs)
     launches = {"K1": fa.launches, "K4": sc.launches,
                 "K2": fa.launches_bwd_dq, "K3": fa.launches_bwd_dkv}
     emit(phase="end_to_end", seconds=time.time() - t0, launches=launches)
@@ -3082,6 +3112,38 @@ def phase_tools(card: str) -> dict:
     return launches
 
 
+def phase_bench(card: str) -> dict:
+    """`bench_torch.py --headline-only` as a user runs it, a process of its
+    own: its JSON line, printed twice, names the metric and this card;
+    the headline's wall and its DiT share of the card's peak are in range;
+    one 60 s song launched K1 in each of the 24 layers of the 8 steps and
+    K4 once for each C <= 256 decoder level of its one tiled decode (7
+    windows of 1500 frames, one group). Those launches are the phase's."""
+    import torch
+
+    from acestep_torch.config import VAEConfig
+    from acestep_torch.models.vae import OobleckVAE
+
+    t0 = time.time()
+    out = _run_tool(["bench_torch.py", "--headline-only"])
+    lines = [json.loads(x) for x in out.strip().splitlines()]
+    vae = OobleckVAE(VAEConfig(), device="meta")
+    want = {"K1": 8 * K1_PER_STEP,
+            "K4": sum(blk.res1.conv1.weight.shape[0] <= 256
+                      for blk in vae.decoder.blocks)}
+    payload = lines[-1]
+    extra = payload["extra"]
+    if not (len(lines) == 2 and payload["metric"] == "seconds_per_song"
+            and payload["value"] > 0 and extra["mfu_pct"] is not None
+            and 0 < extra["mfu_pct"] <= 100 and extra["card"] == card
+            and extra["device"] == torch.cuda.get_device_name(0)
+            and extra["launches"] == want):
+        raise AssertionError(f"bench: {out[-3000:]}; want the card {card!r}, "
+                             f"launches {want}")
+    emit(phase="bench", seconds=time.time() - t0, payload=payload)
+    return {**extra["launches"], "K2": 0, "K3": 0}
+
+
 def _steps(metrics_path: str):
     """(steps, losses, first timestamp of each step) from metrics.jsonl."""
     first = {}
@@ -3912,11 +3974,13 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     tools = phase_tools(_card())
+    bench = phase_bench(_card())
     training, adapter, rest_training, full, full_mesh, estimate = \
         phase_training(k4_per_song)
     launches = {k: text2music[k] + tasks[k] + checkpoint[k] + planner[k]
                 + serving[k] + dataset[k] + mesh[k] + quant[k] + lrc[k]
-                + tools[k] + training[k] + adapter[k] + rest_training[k]
+                + tools[k] + bench[k] + training[k] + adapter[k]
+                + rest_training[k]
                 + full[k] + full_mesh[k] + estimate[k] for k in training}
 
     def row(name, source, replaces, cases, rep, n):

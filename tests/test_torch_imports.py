@@ -1,6 +1,7 @@
 """The port stands alone: importing every acestep_torch module, the chip
 smoke script and the port's tools (the environment doctor, the profiler
-harness, the memory profiler) pulls in neither JAX nor the JAX package;
+harness, the memory profiler, the benchmark and the DiT A/B) pulls in
+neither JAX nor the JAX package;
 the real-checkpoint parity harness is the one tool that imports both, as
 it compares them."""
 
@@ -47,6 +48,7 @@ def test_port_tools_import_without_jax():
     res = _run("import sys\n"
                "sys.path.insert(0, 'scripts')\n"
                "import check_gpu, profile_inference_torch, profile_vram\n"
+               "import bench_torch, profile_dit_ab_torch\n"
                "assert not any(m == 'jax' or m.startswith(('jax.', "
                "'acestep_tpu')) for m in sys.modules)\n")
     assert res.returncode == 0, res.stderr
@@ -77,7 +79,8 @@ def test_chip_smoke_imports_without_jax():
 # the port's tools beside the package: none imports JAX or the JAX package
 PORT_TOOLS = ["scripts/check_gpu.py", "profile_inference_torch.py",
               "scripts/profile_vram.py", "scripts/torch_lm_profile.py",
-              "scripts/torch_train_profile.py"]
+              "scripts/torch_train_profile.py", "bench_torch.py",
+              "scripts/profile_dit_ab_torch.py"]
 # the one tool that compares the two packages, so imports both
 COMPARES_BOTH = ["scripts/parity_real_torch.py"]
 
