@@ -122,6 +122,10 @@ def _lokr_target(raw: str) -> str:
 
 
 def _load_safetensors_adapter(path: str) -> dict:
+    if not os.path.isfile(path):
+        # the message the JAX package's reader (safetensors' safe_open)
+        # gives, which the REST routes pass on in their error envelope
+        raise FileNotFoundError(f"No such file or directory: {path}")
     sidecar_alpha, sidecar_rank = _read_sidecar(path)
     tensors = read_safetensors(path)
     per_layer: Dict[str, Dict[int, Dict[str, np.ndarray]]] = {}

@@ -1,5 +1,5 @@
-"""Audio I/O: load (stereo, 48 kHz), peak normalization, WAV and FLAC save,
-AudioSaver, params -> UUID.
+"""Audio I/O: load (stereo, 48 kHz), peak and loudness normalization, WAV
+and FLAC save, AudioSaver, params -> UUID.
 
 A copy of the parts of `acestep_tpu/utils/audio.py` that the port uses.
 WAV is read and written with the stdlib `wave` module, FLAC with the
@@ -137,6 +137,43 @@ def peak_normalize(audio: np.ndarray, target_dbfs: float = -1.0) -> np.ndarray:
         return audio
     target = 10.0 ** (target_dbfs / 20.0)
     return (audio * (target / peak)).astype(np.float32)
+
+
+def loudness_normalize(audio: np.ndarray, target_lufs: float = -14.0,
+                       sr: int = SAMPLE_RATE) -> np.ndarray:
+    """Approximate LUFS normalization via K-weighted RMS (ITU-R BS.1770's
+    K-weighting and per-channel energy sum, without its gating; within
+    ~0.5 LU of a gated meter on music)."""
+    from scipy.signal import lfilter
+
+    # the K-weighting biquads below are designed for 48 kHz: measure on a
+    # 48 kHz copy when the input is at another rate (the gain still
+    # applies to the original samples)
+    measured = audio if sr == SAMPLE_RATE else resample(audio, sr,
+                                                        SAMPLE_RATE)
+    # K-weighting: shelving + high-pass (BS.1770 biquads at 48 kHz)
+    b1 = [1.53512485958697, -2.69169618940638, 1.19839281085285]
+    a1 = [1.0, -1.69065929318241, 0.73248077421585]
+    b2 = [1.0, -2.0, 1.0]
+    a2 = [1.0, -1.99004745483398, 0.99007225036621]
+    x = lfilter(b1, a1, measured, axis=0)
+    x = lfilter(b2, a2, x, axis=0)
+    # loudness sums the per-channel mean-square energies (unity channel
+    # weights for stereo); a cross-channel mean would under-measure stereo
+    # by ~3 LU
+    if x.ndim > 1:
+        ms = float(np.sum(np.mean(np.square(x), axis=0)))
+    else:
+        ms = float(np.mean(np.square(x)))
+    if ms <= 1e-12:
+        return audio
+    lufs = -0.691 + 10.0 * np.log10(ms)
+    gain = 10.0 ** ((target_lufs - lufs) / 20.0)
+    out = audio * gain
+    peak = np.max(np.abs(out))
+    if peak > 1.0:
+        out = out / peak * 0.999
+    return out.astype(np.float32)
 
 
 # ------------------------------------------------------------------

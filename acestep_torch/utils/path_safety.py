@@ -9,7 +9,7 @@ from HTTP bodies, so anything that touches the filesystem must resolve
 under the safe root or raise.
 
 The root defaults to the process working directory; operators can widen
-it with ``ACESTEP_SAFE_ROOT`` (e.g. a data volume).
+it with ``ACESTEP_SAFE_ROOT`` (e.g. a data volume) or ``set_safe_root``.
 """
 from __future__ import annotations
 
@@ -18,6 +18,15 @@ from typing import Optional
 
 _SAFE_ROOT: str = os.path.normpath(
     os.path.abspath(os.environ.get("ACESTEP_SAFE_ROOT", os.getcwd())))
+
+
+def set_safe_root(root: str) -> None:
+    global _SAFE_ROOT
+    _SAFE_ROOT = os.path.normpath(os.path.abspath(root))
+
+
+def get_safe_root() -> str:
+    return _SAFE_ROOT
 
 
 def safe_path(user_path: str, *, base: Optional[str] = None) -> str:

@@ -25,8 +25,9 @@ so the exit code is non-zero and no result line is printed:
    stack and cached).
 4. reference: a small model through the port's handler on the card (bf16,
    kernels) against the same weights on the CPU (fp32, plain versions):
-   turbo text2music, a turbo cover (cover strength 0.5) and repaint of a
-   seeded song, and a base model's 4 guided (APG) steps;
+   turbo text2music, a turbo cover (cover strength 0.5), repaint,
+   extract, lego and complete of a seeded song, and a base model's 4
+   guided (APG) steps;
    then one LoRA step of a small model, card against CPU: the loss and
    every target's adapter gradient, and a control step with the attention
    backward's delta left out that the gradient limit must catch; then
@@ -102,7 +103,24 @@ Between phases 5 and 6, on phase 5's full-width handler:
   with the default format (flac) decoded back equal to the int16 samples
   written, `audio_conversion_time` beside a wav save's. The CLI's
   `--once --no-think` as a subprocess on the card, its flac decoded.
-- dataset (after serving, the planner still attached, on the same
+- studio (after serving, on the same handler, DiT-only; the Studio's
+  HTTP flows through the REST server in this process, user paths under
+  a temporary safe root): GET /studio returns the page's bytes; the
+  Studio's generate body for extract, lego (10-20 s) and complete on a
+  seeded 30 s source sent base64 as the page sends it, and lego again as
+  a multipart upload (its latents against the base64 one's): each 30 s,
+  finite, K1 >= layers x 8 and K4 >= the decode's stacks plus one encoder
+  pass, with its wall and peak; /create_random_sample and its blueprint
+  rendered at 30 s; the LoRA panel at full width (a seeded rank-8 PEFT
+  adapter on q/k/v/o of the 24 layers: load, status, scale 0.5, toggle
+  off rendering the base's bits, toggle on another song, unload with
+  `memory_allocated` back within 1% of before the load);
+  /v1/reinitialize twice with allow_random_init (each followed by a
+  render bit-identical to the base, allocated memory after the second
+  within 1% of after the first, each swap's peak beside the DiT's
+  bytes); /lrc_to_vtt on a want_lrc request's LRC (the capture pass's 7
+  K1 layers counted). The handler leaves with phase 5's weights.
+- dataset (after studio, the planner still attached, on the same
   handler): two seeded 60 s songs through POST /v1/dataset/build (K4 three
   times an encode, the planner's `understand` per song) polled through
   /v1/dataset/status, then the session routes scan -> auto_label_async
@@ -141,29 +159,33 @@ s song at batch 1, full width): its JSON line printed twice, a wall > 0,
 and power limit, and one song's K1 (192) and K4 (one a C <= 256 decoder
 level) launches, which join the kernel table's counts.
 
-Phase 6 goes on with `rest_training`: `/v1/training/start` for 2 LoRA
-steps at full width on the tensors phase 6 preprocessed (K1, K2, K3
-counted), `/v1/training/status` polled until done, the written adapter
-loaded; `full_training`: the CLI's `full` at full width on the same
-tensors, 2 steps with a checkpoint every 2, the latest checkpoint
-restored bit-equal in this process, a resume from `latest` to step 4
-(seconds per step, launches per step, peak memory, checkpoint bytes, save
-and restore seconds; the output deleted after); `full_training_mesh`: the
-full trainer over meshes on a batch of both tensor files (one row cut to
-60 s of valid frames), two updates each: a 1-rank NCCL mesh bit-equal to
-the plain trainer, then two gloo ranks sharing the card at tp=2 and at
-dp=2, the loss and the gradient (per family of parameters) within
-TOL_FULL_MESH of the plain update's, each beside a fault control that
-must exceed it, every rank's peak memory, seconds per update and K1-K3
-launches, and tp=2's checkpoint (gathered to the unsharded layout)
-restored bit-equal into an unsharded trainer; and `estimate`: the CLI's
-`estimate --num-batches 2` (wall, ranked targets) and a small model's
-estimate, card against CPU.
+Phase 6 goes on with `rest_training` on the tensors phase 6
+preprocessed, at full width: `/v1/training/load_tensor_info`, a long run
+stopped by `/v1/training/stop` after its first step, the restart (2 LoRA
+steps) polled through `/v1/training/status` until done, its adapter
+checked, `/v1/training/export`, the export loaded back through
+`/v1/lora/load` and a 30 s song rendered under it, `start_lora` and
+`start_lokr` for one step each, `/v1/training/tensorboard/start|stop`
+(K1, K2, K3 counted for the steps); `full_training`: the CLI's `full` at
+full width on the same tensors, 2 steps with a checkpoint every 2, the
+latest checkpoint restored bit-equal in this process, a resume from
+`latest` to step 4 (seconds per step, launches per step, peak memory,
+checkpoint bytes, save and restore seconds; the output deleted after);
+`full_training_mesh`: the full trainer over meshes on a batch of both
+tensor files (one row cut to 60 s of valid frames), two updates each: a
+1-rank NCCL mesh bit-equal to the plain trainer, then two gloo ranks
+sharing the card at tp=2 and at dp=2, the loss and the gradient (per
+family of parameters) within TOL_FULL_MESH of the plain update's, each
+beside a fault control that must exceed it, every rank's peak memory,
+seconds per update and K1-K3 launches, and tp=2's checkpoint (gathered
+to the unsharded layout) restored bit-equal into an unsharded trainer;
+and `estimate`: the CLI's `estimate --num-batches 2` (wall, ranked
+targets) and a small model's estimate, card against CPU.
 
 The launch counts of the kernel table are those of phases 5 and 6 with
 their `tasks`, `adapter`, `rest_training`, `full_training`,
 `full_training_mesh` and `estimate` parts, the checkpoint render, the
-measured thinking requests, the serving, dataset and mesh phases (the
+measured thinking requests, the serving, studio, dataset and mesh phases (the
 meshes' follower ranks' launches summed in, as their command replies
 return them), the quant phase's measured renders and its tier children's
 measured requests (as the children report them), the lrc request, the
@@ -687,8 +709,8 @@ def _reference_case(name, gpu, cpu, **kw):
 def phase_reference():
     """Small models through the handler on the card (bf16, kernels) and on
     the CPU (fp32, plain versions), same weights and noise: turbo
-    text2music, a turbo cover and repaint of a seeded song, and a base
-    model's guided steps."""
+    text2music, a turbo cover, repaint, extract, lego and complete of a
+    seeded song, and a base model's guided steps."""
     import numpy as np
 
     from acestep_torch.config import DiTConfig, VAEConfig
@@ -712,6 +734,14 @@ def phase_reference():
         "repaint", gpu, cpu, captions=["repaint a", "repaint b"],
         task="repaint", src_audio=song, repainting_start=2.0,
         repainting_end=5.0, **common)
+    # the track modes: the source in context without the cover flag
+    for task, kw in (("extract", dict(track_name="vocals")),
+                     ("lego", dict(track_name="drums", repainting_start=2.0,
+                                   repainting_end=5.0)),
+                     ("complete", dict(track_classes=["drums", "bass"]))):
+        errs[task] = _reference_case(
+            task, gpu, cpu, captions=[f"{task} a", f"{task} b"], task=task,
+            src_audio=song, **kw, **common)
     del gpu, cpu
     gpu, cpu = _reference_pair(
         DiTConfig.tiny(fsq_dim=64, head_dim=128, model_version="base"),
@@ -1946,15 +1976,20 @@ TOL_COALESCED = 5e-2
 SERVED_MODEL = "acestep-v15-turbo"
 
 
-def _rest(port: int, method: str, route: str, body=None):
-    """(status, parsed JSON or raw bytes, seconds) of one HTTP call."""
+def _rest(port: int, method: str, route: str, body=None, headers=None):
+    """(status, parsed JSON or raw bytes, seconds) of one HTTP call; a
+    bytes `body` goes as it is, with `headers`."""
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     t0 = time.perf_counter()
-    conn.request(method, route, None if body is None else json.dumps(body),
-                 {"Content-Type": "application/json"} if body is not None
-                 else {})
+    if isinstance(body, bytes):
+        conn.request(method, route, body, headers or {})
+    else:
+        conn.request(method, route,
+                     None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"}
+                     if body is not None else {})
     resp = conn.getresponse()
     raw = resp.read()
     seconds = time.perf_counter() - t0
@@ -2327,6 +2362,339 @@ def phase_serving(turbo, llm):
     return launches
 
 
+STUDIO_SECONDS = 30.0
+# the LoRA panel's seeded PEFT-layout adapter: rank 8 on q/k/v/o of every
+# layer, A ~ N(0, 1/in), B ~ N(0, LORA_B_STD^2)
+LORA_RANK, LORA_B_STD = 8, 0.02
+
+
+def _multipart(fields: dict, files: dict):
+    """(body, headers) of a multipart/form-data request."""
+    boundary = "----chipsmokeboundary"
+    out = b""
+    for name, value in fields.items():
+        out += (f"--{boundary}\r\nContent-Disposition: form-data; "
+                f'name="{name}"\r\n\r\n{value}\r\n').encode()
+    for name, (filename, data) in files.items():
+        out += (f"--{boundary}\r\nContent-Disposition: form-data; "
+                f'name="{name}"; filename="{filename}"\r\n'
+                "Content-Type: application/octet-stream\r\n\r\n").encode()
+        out += data + b"\r\n"
+    out += f"--{boundary}--\r\n".encode()
+    return out, {"Content-Type": f"multipart/form-data; boundary={boundary}",
+                 "Content-Length": str(len(out))}
+
+
+def _write_peft_adapter(path: str, cfg, seed: int) -> int:
+    """A seeded PEFT-layout LoRA (`lora_A` (r, in), `lora_B` (out, r)) on
+    q/k/v/o of every decoder layer, in float32; its parameter count."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    hidden, hd = cfg.hidden_size, cfg.head_dim
+    dims = {"q_proj": (hidden, cfg.num_attention_heads * hd),
+            "k_proj": (hidden, cfg.num_key_value_heads * hd),
+            "v_proj": (hidden, cfg.num_key_value_heads * hd),
+            "o_proj": (cfg.num_attention_heads * hd, hidden)}
+    tensors = {}
+    for layer in range(cfg.num_hidden_layers):
+        for proj, (d_in, d_out) in dims.items():
+            key = f"layers.{layer}.self_attn.{proj}"
+            tensors[f"{key}.lora_A.weight"] = torch.randn(
+                LORA_RANK, d_in, generator=gen) / math.sqrt(d_in)
+            tensors[f"{key}.lora_B.weight"] = LORA_B_STD * torch.randn(
+                d_out, LORA_RANK, generator=gen)
+    _write_safetensors(path, tensors)
+    return sum(t.numel() for t in tensors.values())
+
+
+def phase_studio(turbo):
+    """The Studio's flows over the port's REST server in this process, on
+    phase 5's full-width turbo handler (DiT-only), user paths under a
+    temporary safe root: the page; the Studio's generate body for extract,
+    lego and complete on a seeded 30 s source sent base64 as the page
+    sends it (and lego once more as a multipart upload), each finite, 30 s
+    long, K1 >= layers x 8 and K4 >= the decode's stacks plus one encoder
+    pass; the dice and its blueprint rendered at 30 s; the LoRA panel at
+    full width (load, status, scale 0.5, toggle off: the base's bits,
+    toggle on: another song, unload: memory back within 1%);
+    /v1/reinitialize twice with allow_random_init (each re-init's render
+    the base's bits, memory after the second within 1% of after the
+    first, each swap's peak beside the DiT's bytes); /lrc_to_vtt on a
+    want_lrc request's LRC. The handler leaves as it came: the same
+    weights (the re-init's seed is phase 5's) and no adapter."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from acestep_torch.ops import flash_attention as fa
+    from acestep_torch.ops import snake_conv as sc
+    from acestep_torch.scoring.alignment import DEFAULT_CAPTURE
+    from acestep_torch.serving import server as srv
+    from acestep_torch.utils.audio import load_wav, save_wav
+    from acestep_torch.utils.path_safety import get_safe_root, set_safe_root
+
+    t_phase = time.time()
+    layers = turbo.cfg.num_hidden_layers
+    vae_cfg = turbo.vae_cfg
+    k4_decode = sum(blk.res1.conv1.weight.shape[0] <= 256
+                    for blk in turbo.vae.decoder.blocks)
+    k4_encode = sum(vae_cfg.encoder_hidden_size * m <= 256
+                    for m in (1,) + tuple(vae_cfg.channel_multiples[:-1]))
+    samples = int(STUDIO_SECONDS * 25) * vae_cfg.hop_length
+    here = os.path.dirname(os.path.abspath(__file__))
+    fa.launches, sc.launches = 0, 0
+    old_root = get_safe_root()
+    renders = []                    # the latents of each render
+    real_generate = turbo.generate_music
+
+    def capture(**kw):
+        res = real_generate(**kw)
+        renders.append(np.asarray(res.pred_latents))
+        return res
+
+    def memory():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_studio_") as work, \
+            mock.patch.object(turbo, "generate_music", capture):
+        set_safe_root(work)
+        state = srv.AppState({SERVED_MODEL: turbo}, None,
+                             output_dir=os.path.join(work, "outputs"),
+                             persist_dir=os.path.join(work, "persist"),
+                             examples_dir=os.path.join(here, "examples"))
+        server, port = _serve(state)
+        try:
+            def render(name, body, *, encodes, raw=None, headers=None):
+                """One request through /release_task -> /query_result: its
+                items, the latents it rendered, and its record."""
+                k1, k4 = fa.launches, sc.launches
+                n = len(renders)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                if raw is None:
+                    task = _release(port, body)
+                else:
+                    status, out, _ = _rest(port, "POST", "/release_task",
+                                           raw, headers)
+                    if status != 200:
+                        raise AssertionError(f"{name}: {status} {out}")
+                    task = out["data"]["task_id"]
+                items = _wait_task(port, task)
+                wall = time.time() - t0
+                k1, k4 = fa.launches - k1, sc.launches - k4
+                need = {"K1": layers * 8,
+                        "K4": k4_decode + encodes * k4_encode}
+                audio, sr = load_wav(items[0]["file"])
+                _check_audio(name, [audio], samples)
+                if sr != 48000 or len(renders) != n + 1 or \
+                        k1 < need["K1"] or k4 < need["K4"]:
+                    raise AssertionError(
+                        f"{name}: sr {sr}, renders {len(renders) - n}, K1 "
+                        f"{k1} and K4 {k4} launches, need {need}")
+                rec = dict(phase="studio", request=name, wall_s=wall,
+                           k1_launches=k1, k4_launches=k4, need=need,
+                           max_memory_allocated=torch.cuda.
+                           max_memory_allocated(),
+                           time_costs=items[0].get("time_costs"))
+                return items, renders[-1], rec
+
+            # -- the page
+            status, page, _ = _rest(port, "GET", "/studio")
+            with open(os.path.join(here, "acestep_torch", "serving",
+                                   "studio.html"), "rb") as f:
+                want_page = f.read()
+            if status != 200 or page != want_page:
+                raise AssertionError(f"/studio: {status}, {len(page)} bytes "
+                                     f"(want the page's {len(want_page)})")
+            emit(phase="studio", part="page", bytes=len(page))
+
+            # -- the editing modes on a seeded 30 s source
+            src_path = os.path.join(work, "source.wav")
+            save_wav(src_path, _song(STUDIO_SECONDS, 71))
+            with open(src_path, "rb") as f:
+                src_bytes = f.read()
+            studio_body = dict(
+                prompt="lofi remix, soft keys", lyrics="[Instrumental]",
+                audio_duration=STUDIO_SECONDS, inference_steps=8, seed=81,
+                use_random_seed=False, thinking=False, audio_format="wav",
+                guidance_scale=7.0, infer_method="ode", shift=3.0,
+                src_audio_b64=base64.b64encode(src_bytes).decode(),
+                upload_audio_format="wav")
+            modes = {"extract": dict(track_name="vocals"),
+                     "lego": dict(track_name="drums", repainting_start=10.0,
+                                  repainting_end=20.0),
+                     "complete": dict(track_classes=["drums", "bass"])}
+            lego = None
+            for mode, extra in modes.items():
+                _, lat, rec = render(mode, dict(studio_body, task_type=mode,
+                                                **extra), encodes=1)
+                if mode == "lego":
+                    lego = lat
+                emit(**rec)
+            fields = {k: ("false" if v is False else v)
+                      for k, v in studio_body.items()
+                      if k not in ("src_audio_b64", "upload_audio_format")}
+            raw, headers = _multipart(
+                dict(fields, task_type="lego", **modes["lego"]),
+                {"src_audio": ("source.wav", src_bytes)})
+            _, lat, rec = render("lego_multipart", None, encodes=1, raw=raw,
+                                 headers=headers)
+            diff = _rel_err(lat, lego)
+            if diff > TOL_COALESCED:
+                raise AssertionError(f"lego: multipart upload against base64"
+                                     f" latents rel err {diff}")
+            emit(**rec, latent_rel_err_vs_base64=diff)
+
+            # -- the dice, then its blueprint at 30 s
+            status, dice, _ = _rest(port, "POST", "/create_random_sample",
+                                    {"sample_mode": "custom_mode"})
+            sample = dice.get("data") or {}
+            if status != 200 or not sample.get("caption"):
+                raise AssertionError(f"/create_random_sample: {status} "
+                                     f"{dice}")
+            _, _, rec = render("dice_blueprint", dict(
+                prompt=sample["caption"], lyrics=sample.get("lyrics", ""),
+                bpm=sample.get("bpm"), key_scale=sample.get("keyscale", ""),
+                vocal_language=sample.get("language", "en"),
+                audio_duration=STUDIO_SECONDS, seed=82,
+                use_random_seed=False, thinking=False, audio_format="wav"),
+                encodes=0)
+            emit(**rec, sample_duration=sample.get("duration"))
+
+            # -- the LoRA panel at full width
+            base_body = dict(prompt="melodic techno, analog arps",
+                             lyrics="[Instrumental]",
+                             audio_duration=STUDIO_SECONDS, seed=83,
+                             use_random_seed=False, thinking=False,
+                             audio_format="wav")
+            _, base, rec = render("lora_base", base_body, encodes=0)
+            emit(**rec)
+            adapter = os.path.join(work, "panel", "adapter_model.safetensors")
+            os.makedirs(os.path.dirname(adapter))
+            n_params = _write_peft_adapter(adapter, turbo.cfg, seed=84)
+            before_load = memory()
+            panel = {}
+            for label, route, body in (
+                    ("load", "/v1/lora/load", {"lora_path": adapter,
+                                               "adapter_name": "panel"}),
+                    ("status", "/v1/lora/status", None),
+                    ("scale", "/v1/lora/scale", {"adapter_name": "panel",
+                                                 "scale": 0.5}),
+                    ("toggle_off", "/v1/lora/toggle", {"use_lora": False})):
+                status, out, _ = _rest(port, "GET" if body is None
+                                       else "POST", route, body)
+                if status != 200:
+                    raise AssertionError(f"LoRA {label}: {status} {out}")
+                panel[label] = out["data"]
+            _, off, rec_off = render("lora_toggled_off", base_body,
+                                     encodes=0)
+            status, out, _ = _rest(port, "POST", "/v1/lora/toggle",
+                                   {"use_lora": True})
+            panel["toggle_on"] = out["data"]
+            _, on, rec_on = render("lora_on", base_body, encodes=0)
+            with_merge = memory()
+            status_u, out, _ = _rest(port, "POST", "/v1/lora/unload",
+                                     {"adapter_name": "panel"})
+            panel["unload"] = out["data"]
+            after_unload = memory()
+            moved = float(np.abs(on - base).max())
+            off_bits = np.array_equal(off, base)
+            unload_drift = abs(after_unload - before_load) / before_load
+            if not (panel["load"]["params"] == n_params and off_bits
+                    and moved > 1e-3 and panel["scale"]["scale"] == 0.5
+                    and panel["toggle_off"]["use_lora"] is False
+                    and panel["toggle_on"]["use_lora"] is True
+                    and status_u == 200 and unload_drift < 0.01
+                    and not turbo.lora.status()["adapters"]):
+                raise AssertionError(
+                    f"LoRA panel: {panel}, params {n_params}, toggled off "
+                    f"bit-identical {off_bits}, latents moved {moved:.3e}, "
+                    f"allocated before load / after unload {before_load} / "
+                    f"{after_unload}")
+            emit(phase="studio", part="lora_panel", panel=panel,
+                 adapter_params=n_params, toggled_off_bit_identical=off_bits,
+                 latent_max_change_on=moved, wall_off_s=rec_off["wall_s"],
+                 wall_on_s=rec_on["wall_s"], k1_on=rec_on["k1_launches"],
+                 allocated_before_load=before_load,
+                 allocated_with_merge=with_merge,
+                 allocated_after_unload=after_unload,
+                 unload_drift=unload_drift)
+
+            # -- /v1/reinitialize twice: the same seeded weights
+            dit_bytes = sum(t.numel() * t.element_size() for t in
+                            list(turbo.model.parameters())
+                            + list(turbo.model.buffers()))
+            swaps = []
+            for i in range(2):
+                before = memory()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                status, out, _ = _rest(port, "POST", "/v1/reinitialize",
+                                       {"allow_random_init": True})
+                swap_s = time.time() - t0
+                peak = torch.cuda.max_memory_allocated()
+                before_gc = torch.cuda.memory_allocated()
+                after = memory()
+                _, lat, rec = render(f"after_reinit_{i}", base_body,
+                                     encodes=0)
+                bits = np.array_equal(lat, base)
+                swaps.append(dict(status=status, swap_s=swap_s,
+                                  allocated_before=before,
+                                  peak_allocated=peak,
+                                  allocated_after_before_gc=before_gc,
+                                  allocated_after=after,
+                                  render_bit_identical=bits,
+                                  render_wall_s=rec["wall_s"]))
+                if status != 200 or not out["data"]["initialized"] or \
+                        not bits:
+                    raise AssertionError(f"reinitialize {i}: {status} {out},"
+                                         f" render bit-identical {bits}")
+            drift = abs(swaps[1]["allocated_after"]
+                        - swaps[0]["allocated_after"]) / \
+                swaps[0]["allocated_after"]
+            if drift >= 0.01:
+                raise AssertionError(f"reinitialize: allocated after the "
+                                     f"swaps {swaps}, drift {drift}")
+            emit(phase="studio", part="reinitialize", dit_bytes=dit_bytes,
+                 swaps=swaps, allocated_drift=drift)
+
+            # -- /lrc_to_vtt on a want_lrc request's LRC
+            items, _, rec = render("want_lrc", dict(
+                base_body, lyrics="[verse]\nlights on the water\n[chorus]"
+                "\nhold me close, hold me close", want_lrc=True, seed=85),
+                encodes=0)
+            lrc = items[0].get("lrc")
+            # the capture pass runs K1 in the layers up to the deepest
+            # captured one (7 at full width; a model too shallow for the
+            # table captures its own layers, at least one)
+            capture = (max(DEFAULT_CAPTURE) + 1
+                       if layers > max(DEFAULT_CAPTURE) else 1)
+            if not lrc or rec["k1_launches"] < layers * 8 + capture:
+                raise AssertionError(f"want_lrc: K1 {rec['k1_launches']}, "
+                                     f"item {str(items[0])[:400]}")
+            status, vtt, _ = _rest(port, "POST", "/lrc_to_vtt",
+                                   {"lrc": lrc, "duration": STUDIO_SECONDS})
+            vtt = vtt.get("data") or {}
+            if status != 200 or not vtt.get("vtt", "").startswith(
+                    "WEBVTT") or not vtt.get("cues"):
+                raise AssertionError(f"/lrc_to_vtt: {status} {vtt}")
+            emit(**rec, lrc_lines=len(lrc.splitlines()),
+                 vtt_cues=len(vtt["cues"]),
+                 alignment_score=items[0].get("alignment_score"))
+        finally:
+            state.shutdown()
+            server.shutdown()
+            server.server_close()
+            set_safe_root(old_root)
+    launches = {"K1": fa.launches, "K4": sc.launches, "K2": 0, "K3": 0}
+    emit(phase="studio", seconds=time.time() - t_phase, launches=launches)
+    return launches
+
+
 DATASET_SONG_SECONDS = 60.0
 
 
@@ -2527,67 +2895,172 @@ def phase_dataset(turbo, llm):
 
 
 def phase_rest_training(tensors: str, work: str):
-    """LoRA training over REST: `/v1/training/start` for 2 steps at full
-    width (DiTConfig.turbo(), rank 16, batch 1) on the tensors the
-    training phase preprocessed, on a seeded turbo handler; polls
-    `/v1/training/status` until done, counts K1/K2/K3 and loads the
-    written adapter."""
+    """LoRA training over REST at full width (DiTConfig.turbo(), batch 1)
+    on the tensors the training phase preprocessed, on a seeded turbo
+    handler: `/v1/training/load_tensor_info`; a long `/v1/training/start`
+    stopped by `/v1/training/stop` once it has taken a step; the restart
+    (2 steps, rank 16) polled through `/v1/training/status` until done and
+    its adapter checked; `/v1/training/export` of that run, its adapter
+    loaded back through `/v1/lora/load` and a 30 s song rendered under it
+    through `/release_task`; `/v1/training/start_lora` and `start_lokr`
+    for one step each; `/v1/training/tensorboard/start|stop` (the JAX
+    server's error envelope where no tensorboard is installed). K1, K2, K3
+    counted for the steps, K1 and K4 for the render."""
     import torch
 
     from acestep_torch.config import DiTConfig, VAEConfig
+    from acestep_torch.lora.manager import load_adapter_file
     from acestep_torch.ops import flash_attention as fa
     from acestep_torch.ops import snake_conv as sc
     from acestep_torch.pipeline.handler import AceStepHandler
     from acestep_torch.serving import server as srv
+    from acestep_torch.utils.audio import load_wav
 
     t0 = time.time()
     handler = AceStepHandler(DiTConfig.turbo(), VAEConfig(),
                              dtype=torch.bfloat16)
     handler.initialize_service(seed=0)
+    layers = handler.cfg.num_hidden_layers
     state = srv.AppState({SERVED_MODEL: handler}, None,
                          output_dir=os.path.join(work, "rest_outputs"),
                          persist_dir=os.path.join(work, "rest_persist"))
     server, port = _serve(state)
-    out = os.path.join(work, "rest_lora")
     fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
     sc.launches = 0
-    try:
-        t_train = time.time()
-        status, started, _ = _rest(port, "POST", "/v1/training/start", {
-            "dataset_dir": tensors, "config": {
-                "max_steps": 2, "rank": 16, "batch_size": 1,
-                "checkpoint_every": 0, "log_every": 1, "output_dir": out,
-                "adapter_name": "rest_lora"}})
-        if status != 200:
-            raise AssertionError(f"/v1/training/start {status}: {started}")
-        deadline = time.time() + 600
+    record = {}
+
+    def status():
+        return _rest(port, "GET", "/v1/training/status")[1]["data"]
+
+    def finished(timeout=600.0):
+        deadline = time.time() + timeout
         while time.time() < deadline:
-            _, st, _ = _rest(port, "GET", "/v1/training/status")
-            if st["data"]["status"] in ("completed", "failed", "stopped"):
-                break
+            st = status()
+            if st["status"] in ("completed", "failed", "stopped"):
+                return st
             time.sleep(0.2)
+        raise AssertionError(f"REST training did not end: {st}")
+
+    def start(route, name, **config):
+        code, out, _ = _rest(port, "POST", route, {
+            "dataset_dir": tensors, "config": dict(
+                batch_size=1, checkpoint_every=0, log_every=1,
+                output_dir=os.path.join(work, name), adapter_name=name,
+                **config)})
+        if code != 200 or out["data"]["status"] != "started":
+            raise AssertionError(f"{route} {code}: {out}")
+        return out["data"]["config"]
+
+    try:
+        code, info, _ = _rest(port, "POST", "/v1/training/load_tensor_info",
+                              {"dataset_dir": tensors})
+        info = info["data"]
+        if code != 200 or info["num_samples"] != 2 or \
+                info["frames_max"] != int(TRAIN_SONG_SECONDS * 25):
+            raise AssertionError(f"load_tensor_info {code}: {info}")
+        record["tensor_info"] = info
+
+        # -- a long run stopped once it has taken a step
+        start("/v1/training/start", "rest_stopped", max_steps=1000, rank=16)
+        deadline = time.time() + 600
+        while status().get("step", 0) < 1 and time.time() < deadline:
+            time.sleep(0.1)
+        code, stop, _ = _rest(port, "POST", "/v1/training/stop", {})
+        stopped = finished()
+        if code != 200 or stop["data"]["status"] != "stopping" or \
+                stopped["status"] != "stopped" or \
+                not 1 <= stopped["step"] < 1000:
+            raise AssertionError(f"stop: {code} {stop}, then {stopped}")
+        record["stopped_at_step"] = stopped["step"]
+
+        # -- the restart, to its end
+        t_train = time.time()
+        start("/v1/training/start", "rest_lora", max_steps=2, rank=16)
+        data = finished()
         train_wall = time.time() - t_train
         _, metrics, _ = _rest(port, "GET", "/v1/training/metrics")
+        if data["status"] != "completed" or data.get("step") != 2 or \
+                data.get("adapter_loaded") != "rest_lora":
+            raise AssertionError(f"REST training: status {data}")
+        path = os.path.join(work, "rest_lora", "rest_lora.npz")
+        _check_adapter(path)
+
+        # -- export, load it back, render under it
+        code, exported, _ = _rest(port, "POST", "/v1/training/export", {})
+        adapters = exported["data"]["adapters"] if code == 200 else []
+        if adapters != [path]:
+            raise AssertionError(f"export {code}: {exported}")
+        code, loaded, _ = _rest(port, "POST", "/v1/lora/load", {
+            "lora_path": adapters[0], "adapter_name": "exported"})
+        if code != 200 or loaded["data"]["adapter_name"] != "exported":
+            raise AssertionError(f"load of the export {code}: {loaded}")
+        k1, k4 = fa.launches, sc.launches
+        t_render = time.time()
+        entry = _wait_task(port, _release(port, dict(
+            prompt="test song 0", lyrics="[verse]\nla la la\n[chorus]\noh oh",
+            audio_duration=30, seed=86, use_random_seed=False,
+            thinking=False, audio_format="wav")))[0]
+        render_wall = time.time() - t_render
+        audio, _ = load_wav(entry["file"])
+        _check_audio("render under the exported adapter", [audio],
+                     750 * handler.vae_cfg.hop_length)
+        render_k1, render_k4 = fa.launches - k1, sc.launches - k4
+        _, lora_status, _ = _rest(port, "GET", "/v1/lora/status")
+        if render_k1 < 8 * layers or render_k4 < 1 or \
+                lora_status["data"]["active_adapter"] != "exported":
+            raise AssertionError(f"render under the export: K1 {render_k1},"
+                                 f" K4 {render_k4}, {lora_status['data']}")
+        record["export_render"] = dict(
+            wall_s=render_wall, k1_launches=render_k1,
+            k4_launches=render_k4, time_costs=entry["time_costs"])
+
+        # -- start_lora and start_lokr, one step each
+        for route, kind in (("/v1/training/start_lora", "lora"),
+                            ("/v1/training/start_lokr", "lokr")):
+            name = f"rest_{kind}_route"
+            config = start(route, name, max_steps=1, rank=16)
+            st = finished()
+            adapter = load_adapter_file(os.path.join(work, name,
+                                                     f"{name}.npz"))
+            if config["kind"] != kind or st["status"] != "completed" or \
+                    st.get("step") != 1 or \
+                    st.get("adapter_loaded") != name or \
+                    adapter["meta"].get("kind", "lora") != kind:
+                raise AssertionError(f"{route}: config {config}, status "
+                                     f"{st}, adapter {adapter['meta']}")
+            record[kind] = dict(loss=st["loss"], meta=adapter["meta"])
+
+        # -- tensorboard: launched and stopped where it runs, else the
+        # JAX server's 503 envelope (not installed, or exited at once)
+        code, tb, _ = _rest(port, "POST", "/v1/training/tensorboard/start",
+                            {"logdir": os.path.join(work, "rest_lora")})
+        code_stop, tb_stop, _ = _rest(port, "POST",
+                                      "/v1/training/tensorboard/stop", {})
+        ran = code == 200 and tb_stop["data"]["status"] == "stopped"
+        refused = (code == 503 and tb["error"]
+                   and tb_stop["data"]["status"] == "not_running")
+        if not (ran or refused) or code_stop != 200:
+            raise AssertionError(f"tensorboard: start {code} {tb}, stop "
+                                 f"{code_stop} {tb_stop}")
+        record["tensorboard"] = dict(start=code, error=tb["error"],
+                                     stop=tb_stop["data"])
     finally:
         state.shutdown()
         server.shutdown()
         server.server_close()
-    data = st["data"]
     launches = {"K1": fa.launches, "K2": fa.launches_bwd_dq,
                 "K3": fa.launches_bwd_dkv, "K4": sc.launches}
-    layers = handler.cfg.num_hidden_layers
-    need = {"K1": 2 * 2 * layers, "K2": 2 * layers, "K3": 2 * layers}
-    if data["status"] != "completed" or data.get("step") != 2 or \
-            data.get("adapter_loaded") != "rest_lora" or \
-            any(launches[k] < n for k, n in need.items()):
-        raise AssertionError(f"REST training: status {data}, launches "
-                             f"{launches} (need {need})")
-    path = os.path.join(out, "rest_lora.npz")
-    _check_adapter(path)
+    steps = record["stopped_at_step"] + 2 + 1 + 1
+    need = {"K1": 2 * steps * layers + 8 * layers, "K2": steps * layers,
+            "K3": steps * layers, "K4": 1}
+    short = {k: (launches[k], n) for k, n in need.items() if launches[k] < n}
+    if short:
+        raise AssertionError(f"REST training launches (got, need): {short}")
     emit(phase="rest_training", steps=data["step"], loss=data["loss"],
          train_wall_s=train_wall, metrics_points=metrics["data"]["points"],
          adapter=path, adapter_loaded=data["adapter_loaded"],
-         launches=launches, need=need, seconds=time.time() - t0)
+         total_steps=steps, launches=launches, need=need,
+         seconds=time.time() - t0, **record)
     del handler, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -3963,6 +4436,7 @@ def main() -> None:
     checkpoint = phase_checkpoint(handler)
     planner, llm = phase_planner(handler)
     serving = phase_serving(handler, llm)
+    studio = phase_studio(handler)
     dataset = phase_dataset(handler, llm)
     mesh = phase_mesh(handler, llm)
     del llm
@@ -3978,8 +4452,8 @@ def main() -> None:
     training, adapter, rest_training, full, full_mesh, estimate = \
         phase_training(k4_per_song)
     launches = {k: text2music[k] + tasks[k] + checkpoint[k] + planner[k]
-                + serving[k] + dataset[k] + mesh[k] + quant[k] + lrc[k]
-                + tools[k] + bench[k] + training[k] + adapter[k]
+                + serving[k] + studio[k] + dataset[k] + mesh[k] + quant[k]
+                + lrc[k] + tools[k] + bench[k] + training[k] + adapter[k]
                 + rest_training[k]
                 + full[k] + full_mesh[k] + estimate[k] for k in training}
 

@@ -1,7 +1,8 @@
 """The port stands alone: importing every acestep_torch module, the chip
 smoke script and the port's tools (the environment doctor, the profiler
 harness, the memory profiler, the benchmark and the DiT A/B) pulls in
-neither JAX nor the JAX package;
+neither JAX nor the JAX package, and no import in them or in the test
+files that run without JAX names either;
 the real-checkpoint parity harness is the one tool that imports both, as
 it compares them."""
 
@@ -85,10 +86,16 @@ PORT_TOOLS = ["scripts/check_gpu.py", "profile_inference_torch.py",
 COMPARES_BOTH = ["scripts/parity_real_torch.py"]
 
 
+# test files and helpers that run without JAX: the card tests, the mesh
+# commands the follower ranks import, and the Studio's flows
+JAX_FREE_TESTS = ["tests/test_torch_cuda.py", "tests/torch_mesh_helpers.py",
+                  "tests/test_torch_studio_ui.py"]
+
+
 def _import_scan_files():
     return sorted(str(p.relative_to(ROOT))
                   for p in (ROOT / "acestep_torch").rglob("*.py")) + [
-        "chip_smoke.py"] + PORT_TOOLS
+        "chip_smoke.py"] + PORT_TOOLS + JAX_FREE_TESTS
 
 
 def _forbidden(name: str) -> bool:
@@ -122,7 +129,8 @@ def _jax_imports(source: str, filename: str = "<src>"):
 
 @pytest.mark.parametrize("rel", _import_scan_files())
 def test_no_jax_import_at_any_depth(rel):
-    """Every import of the port and of chip_smoke.py, at any depth, names
+    """Every import of the port, of chip_smoke.py, of the port's tools and
+    of the JAX-free test files, at any depth, names
     neither jax nor the JAX package: importing a module alone would miss
     one inside a function, which would fail only where it runs."""
     bad = _jax_imports((ROOT / rel).read_text(), rel)

@@ -16,6 +16,7 @@ import http.client
 import io
 import json
 import os
+import random
 import re
 import threading
 import time
@@ -34,6 +35,7 @@ import acestep_torch.serving.server as tserver
 import acestep_torch.utils.audio as taudio
 from acestep_tpu.serving.schemas import GenerateMusicRequest as JReq
 from acestep_torch.serving.schemas import GenerateMusicRequest as TReq
+from torch_parity import port_safe_root  # noqa: F401
 
 SIDES = {
     "jax": (jserver, jhandler.GenerationResult, jaudio.save_wav, JReq),
@@ -85,22 +87,29 @@ class FakeDiTHandler:
 
 
 class Server:
-    def __init__(self, side, root, api_key=None, workers=1):
+    """One package's server on 127.0.0.1 over `handler` (by default a
+    `FakeDiTHandler`); `state_kw` goes to its `AppState`."""
+
+    def __init__(self, side, root, api_key=None, workers=1, handler=None,
+                 **state_kw):
         mod, result_cls, save_wav, _ = SIDES[side]
+        self.root = root
         self.out_dir = os.path.join(root, "outputs")
         os.makedirs(self.out_dir, exist_ok=True)
-        self.handler = FakeDiTHandler(self.out_dir, result_cls, save_wav)
+        self.handler = handler or FakeDiTHandler(self.out_dir, result_cls,
+                                                 save_wav)
         self.state = mod.AppState({MODEL: self.handler}, None,
                                   output_dir=self.out_dir,
                                   persist_dir=os.path.join(root, "persist"),
-                                  api_key=api_key, worker_count=workers)
+                                  api_key=api_key, worker_count=workers,
+                                  **state_kw)
         self.server = mod.create_server(self.state, "127.0.0.1", 0)
         threading.Thread(target=self.server.serve_forever,
                          daemon=True).start()
         self.port = self.server.server_address[1]
 
     def close(self):
-        if self.handler.gate is not None:
+        if getattr(self.handler, "gate", None) is not None:
             self.handler.gate.set()
         self.state.shutdown()
         self.server.shutdown()
@@ -152,7 +161,7 @@ def servers(tmp_path):
 
 _TIME_KEYS = {"timestamp", "create_time", "run_start_time", "created_at",
               "started_at", "finished_at", "avg_job_seconds",
-              "generation_info"}
+              "generation_info", "loaded_at"}
 
 
 class Norm:
@@ -165,6 +174,8 @@ class Norm:
             return "<t>"
         if key == "service":
             return "<service>"
+        if key == "devices":           # JAX's devices, or the torch device
+            return "<devices>"
         if isinstance(x, dict):
             return {k: self(v, k) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
@@ -529,17 +540,12 @@ def dataset_servers(tmp_path_factory):
 
 
 @pytest.mark.parametrize("method,route", DATASET_ROUTES)
-def test_dataset_routes_answer_like_jax(dataset_servers, monkeypatch, method,
-                                        route):
+def test_dataset_routes_answer_like_jax(dataset_servers, port_safe_root,
+                                        method, route):
     """Each route on a server with no dataset session yet and a missing
     audio dir: the port's status code and envelope equal the JAX
     server's (timestamps aside). Both resolve user paths under the same
-    safe root (the test's directory, which conftest gives the JAX
-    package)."""
-    from acestep_tpu.utils.path_safety import get_safe_root
-
-    monkeypatch.setattr("acestep_torch.utils.path_safety._SAFE_ROOT",
-                        get_safe_root())
+    safe root (the test's directory)."""
     answers = {}
     for side, srv in dataset_servers.items():
         status, out = srv.request(method, route, {"audio_dir": "x"})
@@ -570,3 +576,413 @@ def test_debug_timers_gated_like_jax(monkeypatch, capsys, env):
                      t.elapsed is None, capsys.readouterr().err.count("op:")))
     assert seen[0] == seen[1]
     assert seen[1][0] == bool(env)
+
+
+# ---------------------------------------------------------------------------
+# the Studio's, the LoRA panel's and the training panel's routes, over real
+# tiny handlers: each answers as the JAX server's does
+# ---------------------------------------------------------------------------
+
+EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
+TRAIN = {"rank": 2, "max_steps": 1, "batch_size": 1, "checkpoint_every": 0,
+         "log_every": 1}
+# status keys whose values differ between the packages by design: the two
+# trainers draw their noise from different RNGs
+_RUN_KEYS = ("loss", "events")
+
+
+@pytest.fixture(scope="module")
+def route_env(tmp_path_factory):
+    """Both servers over tiny real handlers (the JAX handler's seeded
+    weights carried across to the port's, as test_torch_tasks.py's `_pair`
+    builds them) with the repo's examples; one shared root holds the
+    preprocessed tensors, a PEFT-layout adapter and a checkpoint root."""
+    import jax.numpy as jnp
+    import torch
+    from safetensors.numpy import save_file
+
+    from acestep_torch.training.preprocess import preprocess_samples
+    from torch_parity import np_tree, port_cfg, tiny_dit_cfg, tiny_vae_cfg
+
+    root = tmp_path_factory.mktemp("routes")
+    geom = dict(frame_bucket=8, min_frames=8, refer_frames=8)
+    jh = jhandler.AceStepHandler(dit_config=tiny_dit_cfg(),
+                                 vae_config=tiny_vae_cfg(),
+                                 dtype=jnp.float32, **geom)
+    jh.initialize_service(seed=0)
+    th = thandler.AceStepHandler(port_cfg(tiny_dit_cfg()),
+                                 port_cfg(tiny_vae_cfg()),
+                                 dtype=torch.float32, device="cpu", **geom)
+    th.initialize_service(params=np_tree(jh.params),
+                          vae_params=np_tree(jh.vae_params))
+
+    rng = np.random.default_rng(0)
+    samples = []
+    for i in range(2):
+        path = str(root / f"s{i}.wav")
+        taudio.save_wav(path, (0.1 * rng.standard_normal((8 * 40, 2)))
+                        .astype(np.float32))
+        samples.append({"audio_path": path, "caption": f"s{i}",
+                        "lyrics": "[inst]"})
+    tensors = str(root / "tensors")
+    list(preprocess_samples(th, samples, tensors))    # both read these
+
+    cfg = th.cfg
+    adapter = {}
+    for layer in range(cfg.num_hidden_layers):
+        for proj in ("q_proj", "v_proj"):
+            out = (cfg.num_attention_heads if proj == "q_proj"
+                   else cfg.num_key_value_heads) * cfg.head_dim
+            adapter[f"layers.{layer}.self_attn.{proj}.lora_A.weight"] = \
+                rng.standard_normal((2, cfg.hidden_size)).astype(np.float32)
+            adapter[f"layers.{layer}.self_attn.{proj}.lora_B.weight"] = \
+                rng.standard_normal((out, 2)).astype(np.float32)
+    save_file(adapter, str(root / "adapter_model.safetensors"))
+
+    ckpts = root / "ckpts"
+    for name, files in (("acestep-v15-turbo", {"config.json": "{}",
+                                               "model.safetensors": ""}),
+                        ("my-finetune", {"config.json": '{"model_version": '
+                                         '"sft"}', "model.safetensors": ""}),
+                        ("half-download", {"config.json": "{}"}),
+                        ("peft-dump", {"adapter_config.json": "{}",
+                                       "adapter_model.safetensors": ""})):
+        (ckpts / name).mkdir(parents=True)
+        for fname, text in files.items():
+            (ckpts / name / fname).write_text(text)
+    (root / "empty_logs").mkdir()
+
+    made = {side: Server(side, str(root / side), handler=h,
+                         examples_dir=EXAMPLES)
+            for side, h in (("jax", jh), ("torch", th))}
+    env = dict(root=str(root), tensors=tensors, ckpts=str(ckpts),
+               adapter=str(root / "adapter_model.safetensors"),
+               empty_logs=str(root / "empty_logs"))
+    yield made, env
+    for srv in made.values():
+        srv.close()
+
+
+@pytest.fixture()
+def route_roots(route_env):
+    """Both packages' safe roots at the shared root for one test."""
+    from acestep_tpu.utils import path_safety as jpath
+    from acestep_torch.utils import path_safety as tpath
+
+    olds = jpath.get_safe_root(), tpath.get_safe_root()
+    for mod in (jpath, tpath):
+        mod.set_safe_root(route_env[1]["root"])
+    yield
+    jpath.set_safe_root(olds[0])
+    tpath.set_safe_root(olds[1])
+
+
+def _without_comments(html):
+    return re.sub(r"<!--.*?-->", "", html, flags=re.S)
+
+
+def _training_done(srv, timeout=120.0):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        _, st = srv.get("/v1/training/status")
+        if st["data"]["status"] in ("completed", "failed", "stopped"):
+            return st
+        time.sleep(0.05)
+    raise TimeoutError(st)
+
+
+def _run_view(envelope):
+    """A training status envelope with the RNG-dependent values masked;
+    their presence is kept."""
+    data = envelope["data"]
+    return dict(envelope, data={k: ("<run>" if k in _RUN_KEYS else v)
+                                for k, v in data.items()})
+
+
+def _train(srv, env, route, name, **config):
+    status, out = srv.post(route, {
+        "dataset_dir": env["tensors"], "config": dict(
+            TRAIN, output_dir=os.path.join(srv.root, name),
+            adapter_name=name, **config)})
+    return [(f"{name} start", status, out),
+            (f"{name} done", 200, _run_view(_training_done(srv)))]
+
+
+def _load(srv, env, name="panel"):
+    return ("load", *srv.post("/v1/lora/load", {"lora_path": env["adapter"],
+                                                "adapter_name": name}))
+
+
+def case_studio(srv, env):
+    log = []
+    for route in ("/studio", "/"):
+        status, page = srv.get(route)
+        log.append((route, status, _without_comments(page.decode())))
+    return log
+
+
+def case_create_random_sample(srv, env):
+    log = []
+    for i, mode in enumerate(("custom_mode", "simple_mode", "custom_mode")):
+        random.seed(i)        # the route picks an example at random
+        log.append((mode, *srv.post("/create_random_sample",
+                                    {"sample_mode": mode})))
+    return log
+
+
+def case_lrc_to_vtt(srv, env):
+    lrc = ("[ar:someone]\n[00:01.00]first line\n[00:02.50]second line\n"
+           "[00:03.10]quick\n[00:09.00]last words\n")
+    log = []
+    for d in ("12s", 20.0, "garbage", None):
+        status, out = srv.post("/lrc_to_vtt", {"lrc": lrc, "duration": d})
+        # the cues' own "timestamp" keys would be masked as times
+        log += [(str(d), status, out),
+                (f"{d} cues", status, json.dumps(out["data"]["cues"]))]
+    return log
+
+
+def case_lora_load(srv, env):
+    return [_load(srv, env),
+            ("load default name", *srv.post("/v1/lora/load", {
+                "lora_path": env["adapter"]})),
+            ("load missing", *srv.post("/v1/lora/load", {
+                "lora_path": os.path.join(env["root"], "none.safetensors")})),
+            ("load outside the root", *srv.post("/v1/lora/load", {
+                "lora_path": "/etc/passwd"})),
+            ("status", *srv.get("/v1/lora/status"))]
+
+
+def case_lora_unload(srv, env):
+    return [_load(srv, env),
+            ("unload", *srv.post("/v1/lora/unload", {"adapter_name":
+                                                     "panel"})),
+            ("unload again", *srv.post("/v1/lora/unload",
+                                       {"adapter_name": "panel"})),
+            ("status", *srv.get("/v1/lora/status"))]
+
+
+def case_lora_toggle(srv, env):
+    return [_load(srv, env),
+            ("off", *srv.post("/v1/lora/toggle", {"use_lora": False})),
+            ("status off", *srv.get("/v1/lora/status")),
+            ("on", *srv.post("/v1/lora/toggle", {"use_lora": True})),
+            ("status on", *srv.get("/v1/lora/status"))]
+
+
+def case_lora_scale(srv, env):
+    return [_load(srv, env),
+            ("scale", *srv.post("/v1/lora/scale", {"adapter_name": "panel",
+                                                   "scale": 0.5})),
+            ("status", *srv.get("/v1/lora/status")),
+            ("scale active", *srv.post("/v1/lora/scale", {"scale": "2"})),
+            ("scale unknown", *srv.post("/v1/lora/scale", {
+                "adapter_name": "nope", "scale": 1.0}))]
+
+
+def case_lora_status(srv, env):
+    return [("empty", *srv.get("/v1/lora/status")), _load(srv, env),
+            _load(srv, env, "second"),
+            ("two", *srv.get("/v1/lora/status"))]
+
+
+def _render(handler):
+    res = handler.generate_music(captions=["reinit"], audio_duration=0.64,
+                                 seeds=[5], normalize=False)
+    return np.asarray(res.pred_latents), np.asarray(res.audios[0])
+
+
+def case_reinitialize(srv, env):
+    """Without a checkpoint dir and without allow_random_init the route
+    refuses; with it, each re-init rebuilds the same seeded weights, so a
+    render after the second re-init equals the render before it."""
+    log = [("refused", *srv.post("/v1/reinitialize", {}))]
+    renders = []
+    for i in range(2):
+        log.append((f"reinit {i}", *srv.post("/v1/reinitialize",
+                                             {"allow_random_init": True})))
+        renders.append(_render(srv.handler))
+    for before, after in zip(*renders):
+        np.testing.assert_array_equal(after, before)
+    assert np.abs(renders[0][1]).max() > 0
+    log.append(("lora after reinit", *srv.get("/v1/lora/status")))
+    return log
+
+
+def case_start_lora(srv, env):
+    return _train(srv, env, "/v1/training/start_lora", "lora_run") + [
+        ("lora", *srv.get("/v1/lora/status"))]
+
+
+def case_start_lokr(srv, env):
+    return _train(srv, env, "/v1/training/start_lokr", "lokr_run",
+                  lokr_factor=4) + [("lora", *srv.get("/v1/lora/status"))]
+
+
+def case_stop(srv, env):
+    status, out = srv.post("/v1/training/start", {
+        "dataset_dir": env["tensors"], "config": dict(
+            TRAIN, max_steps=100000,
+            output_dir=os.path.join(srv.root, "stopped_run"))})
+    log = [("start", status, out),
+           ("second start", *srv.post("/v1/training/start", {
+               "dataset_dir": env["tensors"], "config": {}})),
+           ("stop", *srv.post("/v1/training/stop", {}))]
+    st = _training_done(srv)
+    log.append(("stopped", 200, st["data"]["status"]))
+    assert st["data"]["step"] < 100000
+    return log + _train(srv, env, "/v1/training/start", "restarted")
+
+
+def case_tensorboard_start(srv, env):
+    return [("empty logdir", *srv.post("/v1/training/tensorboard/start",
+                                       {"logdir": env["empty_logs"]})),
+            ("outside the root", *srv.post("/v1/training/tensorboard/start",
+                                           {"logdir": "/var/log"}))]
+
+
+def case_tensorboard_stop(srv, env):
+    return [("stop", *srv.post("/v1/training/tensorboard/stop", {}))]
+
+
+def case_load_tensor_info(srv, env):
+    return [("tensors", *srv.post("/v1/training/load_tensor_info",
+                                  {"dataset_dir": env["tensors"]})),
+            ("tensor_dir", *srv.post("/v1/training/load_tensor_info",
+                                     {"tensor_dir": env["tensors"]})),
+            ("missing", *srv.post("/v1/training/load_tensor_info", {
+                "dataset_dir": os.path.join(env["root"], "nope")}))]
+
+
+def case_export(srv, env):
+    out = os.path.join(srv.root, "exported")
+    return _train(srv, env, "/v1/training/start", "exported") + [
+        ("export", *srv.post("/v1/training/export", {"output_dir": out})),
+        ("export latest", *srv.post("/v1/training/export", {})),
+        ("export missing", *srv.post("/v1/training/export", {
+            "output_dir": os.path.join(env["root"], "no_run")}))]
+
+
+def case_models_discover(srv, env):
+    return [(q, *srv.get(f"/v1/models/discover?root={env['ckpts']}{q}"))
+            for q in ("", "&q=turbo", "&q=zzz")] + [
+        ("outside the root", *srv.get("/v1/models/discover?root=/etc"))]
+
+
+ROUTE_CASES = {
+    "/studio": case_studio,
+    "/create_random_sample": case_create_random_sample,
+    "/lrc_to_vtt": case_lrc_to_vtt,
+    "/v1/lora/load": case_lora_load,
+    "/v1/lora/unload": case_lora_unload,
+    "/v1/lora/toggle": case_lora_toggle,
+    "/v1/lora/scale": case_lora_scale,
+    "/v1/lora/status": case_lora_status,
+    "/v1/reinitialize": case_reinitialize,
+    "/v1/training/start_lora": case_start_lora,
+    "/v1/training/start_lokr": case_start_lokr,
+    "/v1/training/stop": case_stop,
+    "/v1/training/tensorboard/start": case_tensorboard_start,
+    "/v1/training/tensorboard/stop": case_tensorboard_stop,
+    "/v1/training/load_tensor_info": case_load_tensor_info,
+    "/v1/training/export": case_export,
+    "/v1/models/discover": case_models_discover,
+}
+
+
+# each case's statuses in order: a transcript equal on both sides must also
+# be the session that was meant (both sides failing alike would pass)
+ROUTE_STATUSES = {
+    "/studio": [200, 200],
+    "/create_random_sample": [200, 200, 200],
+    "/lrc_to_vtt": [200] * 8,
+    "/v1/lora/load": [200, 200, 500, 400, 200],
+    "/v1/lora/unload": [200] * 4,
+    "/v1/lora/toggle": [200] * 5,
+    "/v1/lora/scale": [200, 200, 200, 200, 500],
+    "/v1/lora/status": [200] * 4,
+    "/v1/reinitialize": [400, 200, 200, 200],
+    "/v1/training/start_lora": [200] * 3,
+    "/v1/training/start_lokr": [200] * 3,
+    "/v1/training/stop": [200, 409, 200, 200, 200, 200],
+    "/v1/training/tensorboard/start": [503, 400],
+    "/v1/training/tensorboard/stop": [200],
+    "/v1/training/load_tensor_info": [200, 200, 404],
+    "/v1/training/export": [200, 200, 200, 200, 404],
+    "/v1/models/discover": [200, 200, 200, 400],
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTE_CASES))
+def test_routes_answer_like_jax(route_env, route_roots, route):
+    """The same requests to both servers, each over its package's tiny
+    handler: the transcripts (statuses and envelopes, ids, times, the
+    device list and each side's own root masked) are equal, and the
+    route did its work (no error where the case expects none)."""
+    servers, env = route_env
+    got = {}
+    for side, srv in servers.items():
+        try:
+            got[side] = Norm(srv.root, [])(ROUTE_CASES[route](srv, env))
+        finally:
+            while srv.handler.lora.unload()["unloaded"]:
+                pass
+    assert got["torch"] == got["jax"]
+    assert [status for _, status, _ in got["torch"]] == \
+        ROUTE_STATUSES[route], got["torch"]
+
+
+def test_per_request_lm_swap(tmp_path, monkeypatch):
+    """`lm_model_path` selects a cached planner per checkpoint path, built
+    with the server's device; unknown paths fall back to the default. The
+    JAX package's cache-hit and in-use-eviction sequence
+    (tests/test_serving.py::test_per_request_lm_swap), against the port's
+    `AppState._select_llm`."""
+    import acestep_torch.llm.handler as llm_mod
+    from acestep_torch.utils import downloads
+
+    out_dir = str(tmp_path / "outputs")
+    os.makedirs(out_dir, exist_ok=True)
+    default_llm = object()
+    dit = FakeDiTHandler(out_dir, thandler.GenerationResult, taudio.save_wav)
+    dit.device = "cpu"
+    state = tserver.AppState({"m": dit}, default_llm, output_dir=out_dir,
+                             persist_dir=str(tmp_path / "persist"))
+    built = []
+
+    class FakeLLM:
+        def __init__(self, device=None, **kw):
+            self.device = device
+
+        def initialize(self, checkpoint_dir=None, **kw):
+            built.append((checkpoint_dir, self.device))
+
+    monkeypatch.setattr(llm_mod, "LLMHandler", FakeLLM)
+    # no hub is contacted: a name that is not a directory resolves locally
+    # or not at all
+    monkeypatch.setattr(downloads, "_probe", lambda *a, **k: False)
+
+    assert state._select_llm(None)[0] is default_llm
+    assert state._select_llm("")[0] is default_llm
+    assert state._select_llm("not-a-model-xyz")[0] is default_llm
+
+    ckpt = {}
+    for name in "abcd":
+        ckpt[name] = str(tmp_path / f"lm-{name}")
+        os.makedirs(ckpt[name])
+    a1, rel_a1 = state._select_llm(ckpt["a"])
+    a2, rel_a2 = state._select_llm(ckpt["a"])
+    assert a1 is a2 and built == [(ckpt["a"], "cpu")]    # cache hit
+    rel_a2()
+    # a is still held by rel_a1: filling past the cap must not evict it
+    state._select_llm(ckpt["b"])[1]()
+    _, rel_c = state._select_llm(ckpt["c"])
+    assert ckpt["a"] in state._llm_cache                 # in use: kept
+    rel_a1()
+    a3, _ = state._select_llm(ckpt["a"])
+    assert a3 is a1                                      # still cached
+    rel_c()
+    # with nothing held, a fourth model evicts down to the cap
+    state._select_llm(ckpt["d"])[1]()
+    assert len(state._llm_cache) == state.max_cached_llms
+    assert [b for b, _ in built] == [ckpt[n] for n in "abcd"]

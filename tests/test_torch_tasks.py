@@ -1,6 +1,8 @@
 """The port's handler against `acestep_tpu.pipeline.handler.AceStepHandler`
 on every task of the slice: cover from source audio and from code hints,
-per-row repaint, outpaint, timbre references, partial cover strength,
+per-row repaint, outpaint, the track modes (extract, lego, complete: the
+source in context without the cover flag), timbre references, partial
+cover strength,
 cover noise, the base model (APG) and the sft model (custom timesteps,
 ADG), and `audio_to_codes`. Both handlers get the same weights (the JAX
 handler's seeded init, carried across), requests and `initial_noise`.
@@ -10,8 +12,8 @@ whole file.
 Tolerances: latents 2e-4 absolute (float32 both sides, summation order
 compounding over the VAE encoder, the condition encoders and the decoder
 passes); audio 2e-4 + two steps of the int16 + peak transfer grid, as in
-test_torch_pipeline.py. Spans, cover flags, frame counts, schedules and
-code strings must be equal exactly.
+test_torch_pipeline.py. Spans, cover flags, frame counts, schedules,
+instruction texts and code strings must be equal exactly.
 
 The timbre reference's 30 s budget is cut for the test: both handlers'
 `_sample_reference_segments` run at a sample rate of 160 Hz, so the
@@ -27,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from acestep_tpu.pipeline import handler as jhandler
 from acestep_tpu.pipeline.handler import AceStepHandler as JaxHandler
 from acestep_tpu.utils.memory import is_oom_error as jax_is_oom
 from acestep_torch.pipeline import handler as thandler
@@ -132,6 +135,41 @@ def test_outpaint_both_sides(turbo):
     assert got.extra["frames"] == T + 10 + 9
     assert got.extra["spans"] == [("repainting", 0, 60),
                                   ("repainting", 15, 50)]
+
+
+def _instructions(module):
+    """Patch `module.textlib.resolve_instruction` to record what it
+    returns: (patch, list of texts)."""
+    seen = []
+    real = module.textlib.resolve_instruction
+
+    def spy(*a, **kw):
+        seen.append(real(*a, **kw))
+        return seen[-1]
+
+    return mock.patch.object(module.textlib, "resolve_instruction", spy), seen
+
+
+@pytest.mark.parametrize("task,kw,spans", [
+    ("extract", dict(track_name="vocals"), [("full", 0, T)] * 2),
+    ("lego", dict(track_name="drums", repainting_start=0.2,
+                  repainting_end=0.8), [("repainting", 5, 20)] * 2),
+    ("complete", dict(track_classes=["drums", "bass"]), [("full", 0, T)] * 2),
+])
+def test_track_modes(turbo, task, kw, spans):
+    """extract / lego / complete put the source latents in context with
+    the cover flag off: a full span for extract and complete, the
+    repaint span for lego; the instruction names the tracks."""
+    jpatch, jtexts = _instructions(jhandler)
+    tpatch, ttexts = _instructions(thandler)
+    with jpatch, tpatch:
+        got = _compare(*turbo, task=task, src_audio=SRC, **kw)
+    assert got.extra["task"] == task
+    assert got.extra["is_covers"] == [False, False]
+    assert got.extra["spans"] == spans and got.extra["frames"] == T
+    assert ttexts == jtexts and ttexts
+    names = [kw["track_name"]] if "track_name" in kw else kw["track_classes"]
+    assert all(n.upper() in ttexts[0] for n in names)
 
 
 def test_timbre_reference_and_looping_short_reference(turbo):

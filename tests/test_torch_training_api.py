@@ -26,7 +26,8 @@ from acestep_torch.serving.training_service import TrainingService
 from acestep_torch.training.preprocess import preprocess_samples
 from acestep_torch.utils import tfevents as ttf
 from acestep_torch.utils.audio import save_wav
-from torch_parity import np_tree, port_cfg, tiny_dit_cfg, tiny_vae_cfg
+from torch_parity import (np_tree, port_cfg, port_safe_root,  # noqa: F401
+                          tiny_dit_cfg, tiny_vae_cfg)
 
 GEOM = dict(frame_bucket=8, min_frames=8)
 CONFIG = {"rank": 2, "max_steps": 2, "batch_size": 1, "checkpoint_every": 0,
@@ -210,7 +211,8 @@ class _Planner:
                 "genres": ["ambient"], "keyscale": "E minor"}
 
 
-def test_dataset_flow_over_http(handlers, tmp_path, monkeypatch):
+def test_dataset_flow_over_http(handlers, tmp_path, monkeypatch,
+                                port_safe_root):
     import threading
     import wave
 
@@ -219,8 +221,6 @@ def test_dataset_flow_over_http(handlers, tmp_path, monkeypatch):
     from acestep_torch.serving.server import AppState, create_server
 
     jh, th = handlers
-    monkeypatch.setattr("acestep_torch.utils.path_safety._SAFE_ROOT",
-                        str(tmp_path))
     audio_dir = tmp_path / "raw"
     audio_dir.mkdir()
     rng = np.random.default_rng(3)
@@ -419,7 +419,8 @@ class _SilentDiT:
             extra={"frames": 25, "task": "text2music"})
 
 
-def test_planner_users_take_one_lock(handlers, tmp_path, monkeypatch):
+def test_planner_users_take_one_lock(handlers, tmp_path, monkeypatch,
+                                     port_safe_root):
     """A session label task holds the planner while a format job and a
     sample job wait in the render queue and /format_input is called: no
     two planner calls overlap, and each holds the reinit lock."""
@@ -428,8 +429,6 @@ def test_planner_users_take_one_lock(handlers, tmp_path, monkeypatch):
     from acestep_torch.serving.server import AppState, create_server
 
     _, th = handlers
-    monkeypatch.setattr("acestep_torch.utils.path_safety._SAFE_ROOT",
-                        str(tmp_path))
     audio_dir = tmp_path / "raw"
     audio_dir.mkdir()
     rng = np.random.default_rng(5)

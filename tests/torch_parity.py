@@ -15,6 +15,7 @@ from unittest import mock
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from acestep_tpu.config import DiTConfig, VAEConfig
@@ -33,6 +34,19 @@ def tiny_vae_cfg() -> VAEConfig:
 def highest():
     """JAX products in full float32 for the duration of a block."""
     return jax.default_matmul_precision("highest")
+
+
+@pytest.fixture()
+def port_safe_root(tmp_path):
+    """The port's safe root at the test's directory for one test, as
+    conftest scopes the JAX package's (the same `tmp_path`): both servers
+    then resolve user paths under the same root."""
+    from acestep_torch.utils.path_safety import get_safe_root, set_safe_root
+
+    old = get_safe_root()
+    set_safe_root(str(tmp_path))
+    yield str(tmp_path)
+    set_safe_root(old)
 
 
 def rng(seed: int) -> np.random.Generator:
