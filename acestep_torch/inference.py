@@ -20,6 +20,7 @@ import traceback
 from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional
 
+from acestep_torch.utils import trace
 from acestep_torch.utils.audio import generate_uuid_from_params
 
 # ------------------------------------------------------------------
@@ -266,7 +267,7 @@ def _plan_lm(llm_handler, params: GenerationParams,
                        or params.use_cot_metas)
     if llm_handler is not None and not skip_lm and (
             params.thinking or need_lm_for_cot):
-        t_lm = time.time()
+        plan = trace.begin("plan")
         plan_kwargs = _build_plan_kwargs(
             params, lyrics=lyrics,
             infer_type=("llm_dit" if (params.thinking
@@ -302,7 +303,7 @@ def _plan_lm(llm_handler, params: GenerationParams,
                                for p in phases]
             else:
                 audio_codes = phase["audio_codes"]
-        time_costs["lm_time_cost"] = time.time() - t_lm
+        time_costs["lm_time_cost"] = plan.end()
     return lm_meta, audio_codes
 
 
@@ -315,40 +316,50 @@ def _audio_entry(dit_handler, params: GenerationParams,
     `lrc_error`), its seconds summed over the batch in `auto_lrc_time`.
     The handler's LoRA state enters the key and the sidecar, so the same
     request under another adapter or scale gets another key."""
-    p_dict = params.to_dict()
-    p_dict["seed"] = res.seeds[i]
-    if getattr(dit_handler, "lora", None) is not None:
-        p_dict["lora"] = dit_handler.lora.signature()
-    entry = {
-        "path": path,
-        "key": generate_uuid_from_params(p_dict),
-        "seed": res.seeds[i],
-        "params": p_dict,
-        "sample_rate": res.sample_rate,
-    }
-    if path:
-        sidecar = os.path.splitext(path)[0] + ".json"
-        try:
-            with open(sidecar, "w", encoding="utf-8") as f:
-                json.dump(p_dict, f, indent=2, ensure_ascii=False)
-            entry["params_path"] = sidecar
-        except OSError:
-            pass             # best-effort decoration
-    if config.want_lrc and lyrics.strip().lower() not in (
-            "", "[inst]", "[instrumental]"):
-        t_lrc = time.time()
-        try:
-            lrc = dit_handler.generate_lrc(
-                res.pred_latents[i], meta.get("caption", ""), lyrics,
-                metas={k: v for k, v in meta.items() if k != "caption"},
-                vocal_language=meta.get("language", "en"))
-            entry["lrc"] = lrc["lrc"]
-            entry["alignment_score"] = lrc["score"]
-        except Exception as e:   # noqa: BLE001 — best-effort decoration
-            entry["lrc_error"] = str(e)
-        time_costs["auto_lrc_time"] = (
-            time_costs.get("auto_lrc_time", 0.0) + (time.time() - t_lrc))
-    return entry
+    with trace.span("entry"):
+        p_dict = params.to_dict()
+        p_dict["seed"] = res.seeds[i]
+        if getattr(dit_handler, "lora", None) is not None:
+            p_dict["lora"] = dit_handler.lora.signature()
+        entry = {
+            "path": path,
+            "key": generate_uuid_from_params(p_dict),
+            "seed": res.seeds[i],
+            "params": p_dict,
+            "sample_rate": res.sample_rate,
+        }
+        if path:
+            sidecar = os.path.splitext(path)[0] + ".json"
+            try:
+                with open(sidecar, "w", encoding="utf-8") as f:
+                    json.dump(p_dict, f, indent=2, ensure_ascii=False)
+                entry["params_path"] = sidecar
+            except OSError:
+                pass             # best-effort decoration
+        if config.want_lrc and lyrics.strip().lower() not in (
+                "", "[inst]", "[instrumental]"):
+            lrc_span = trace.begin("lrc")
+            try:
+                lrc = dit_handler.generate_lrc(
+                    res.pred_latents[i], meta.get("caption", ""), lyrics,
+                    metas={k: v for k, v in meta.items() if k != "caption"},
+                    vocal_language=meta.get("language", "en"))
+                entry["lrc"] = lrc["lrc"]
+                entry["alignment_score"] = lrc["score"]
+            except Exception as e:   # noqa: BLE001 — best-effort decoration
+                entry["lrc_error"] = str(e)
+            time_costs["auto_lrc_time"] = (
+                time_costs.get("auto_lrc_time", 0.0) + lrc_span.end())
+        return entry
+
+
+def _request_span(**attrs) -> trace.Span:
+    """The `request` span of one facade call: under a server job's span
+    it takes the job ids, else a fresh request id."""
+    span = trace.begin("request", **attrs)
+    if span.recording and not span.requests:
+        span.requests = (trace.new_request_id(),)
+    return span
 
 
 def generate_music(dit_handler, llm_handler=None,
@@ -359,7 +370,7 @@ def generate_music(dit_handler, llm_handler=None,
     `success=False` with the message, like the JAX facade."""
     params = params or GenerationParams()
     config = config or GenerationConfig()
-    t0 = time.time()
+    request = _request_span()
     time_costs: Dict[str, Any] = {}
     try:
         lyrics = "[Instrumental]" if params.instrumental and not params.lyrics \
@@ -420,7 +431,7 @@ def generate_music(dit_handler, llm_handler=None,
             audio_format=config.audio_format,
         )
         time_costs.update(res.time_costs)
-        time_costs["total_time_cost"] = time.time() - t0
+        time_costs["total_time_cost"] = time.monotonic() - request.t0
         paths = res.audio_paths or [None] * len(res.audios)
         audios = [_audio_entry(dit_handler, params, config, res, i, path,
                                meta, lyrics, time_costs)
@@ -444,6 +455,8 @@ def generate_music(dit_handler, llm_handler=None,
         return GenerationResult(
             audios=[], success=False, error=f"{e}",
             status_message=traceback.format_exc(limit=5))
+    finally:
+        request.end()
 
 
 def generate_music_group(dit_handler, llm_handler,
@@ -463,7 +476,7 @@ def generate_music_group(dit_handler, llm_handler,
     generate_music's schema, or one `success=False` result per job."""
     import random as _random
 
-    t0 = time.time()
+    request = _request_span(songs=len(jobs))
     try:
         per = []
         for params, config in jobs:
@@ -519,7 +532,7 @@ def generate_music_group(dit_handler, llm_handler,
             audio_format=c0.audio_format,
         )
         shared = dict(res.time_costs)
-        shared["total_time_cost"] = time.time() - t0
+        shared["total_time_cost"] = time.monotonic() - request.t0
         shared["coalesced_jobs"] = len(jobs)
         results = []
         paths = res.audio_paths or [None] * len(res.audios)
@@ -549,6 +562,8 @@ def generate_music_group(dit_handler, llm_handler,
         tb = traceback.format_exc(limit=5)
         return [GenerationResult(audios=[], success=False, error=f"{e}",
                                  status_message=tb) for _ in jobs]
+    finally:
+        request.end()
 
 
 def understand_music(llm_handler, audio_codes: str,

@@ -20,6 +20,7 @@ import torch
 from acestep_torch.config import DiTConfig
 from acestep_torch.constants import SHIFT_TIMESTEPS, VALID_SHIFTS, VALID_TIMESTEPS
 from acestep_torch.models.dit import decoder_cross_kv, dit_decoder
+from acestep_torch.utils import trace
 
 
 def build_turbo_schedule(shift: float = 3.0,
@@ -198,15 +199,18 @@ def sample_turbo(model, cfg: DiTConfig, *, x_init: torch.Tensor,
     cover_cut = n if cover_steps is None else cover_steps
     xt = x_init
     for i in range(n):
-        t, t_next = ts[i], ts[i + 1]
-        t_vec = t.expand(bsz)
-        kv, ctx = _select_condition(cond, cond_non_cover, i < cover_cut)
-        vt = dit_decoder(model, cfg, xt, t_vec, t_vec, ctx, cross_kv_cache=kv)
-        if infer_method == "sde":
-            noise = step_noise(xt, generator, noise_rows)
-            xt = renoise(get_x0_from_noise(xt, vt, t_vec), t_next, noise)
-        else:
-            xt = xt - vt * (t - t_next)
+        with trace.span("dit.step", step=i):
+            t, t_next = ts[i], ts[i + 1]
+            t_vec = t.expand(bsz)
+            kv, ctx = _select_condition(cond, cond_non_cover, i < cover_cut)
+            vt = dit_decoder(model, cfg, xt, t_vec, t_vec, ctx,
+                             cross_kv_cache=kv)
+            if infer_method == "sde":
+                noise = step_noise(xt, generator, noise_rows)
+                xt = renoise(get_x0_from_noise(xt, vt, t_vec), t_next, noise)
+            else:
+                xt = xt - vt * (t - t_next)
+        trace.count("dit_steps")
     return xt
 
 
@@ -253,35 +257,37 @@ def sample_guided(model, cfg: DiTConfig, *, x_init: torch.Tensor,
     xt = x_init
     side = None
     for i in range(n):
-        use_cover = i < cover_cut
-        if side is None or (switches and side[0] != use_cover):
-            side = (use_cover, *batched_condition(use_cover))
-        _, kv, ctx = side
-        t, t_next = ts[i], ts[i + 1]
-        rows = 2 * bsz if do_cfg else bsz
-        x_in = torch.cat([xt, xt], dim=0) if do_cfg else xt
-        v = dit_decoder(model, cfg, x_in, t.expand(rows), t.expand(rows),
-                        ctx, cross_kv_cache=kv)
-        if do_cfg:
-            v_cond, v_uncond = v.chunk(2, dim=0)
-            vt = v_cond
-            if cfg_interval[0] <= ts_host[i] <= cfg_interval[1]:
-                if use_adg:
-                    vt = adg_step(xt, v_cond, v_uncond, t,
-                                  guidance_scale=guidance_scale)
-                else:
-                    vt, momentum = apg_step(v_cond, v_uncond, momentum,
-                                            guidance_scale=guidance_scale)
-        else:
-            vt = v
-        if infer_method == "sde":
-            noise = step_noise(xt, generator, noise_rows)
-            # renoise at the UNSHIFTED linear timestep 1 - (i+1)/n, n the
-            # step count after cover-noise truncation (not the next
-            # schedule value: the two agree only at shift 1)
-            lin_next = 1.0 - torch.tensor(float(i + 1), dtype=dtype) / n
-            xt = renoise(get_x0_from_noise(xt, vt, t.expand(bsz)), lin_next,
-                         noise)
-        else:
-            xt = xt - vt * (t - t_next)
+        with trace.span("dit.step", step=i):
+            use_cover = i < cover_cut
+            if side is None or (switches and side[0] != use_cover):
+                side = (use_cover, *batched_condition(use_cover))
+            _, kv, ctx = side
+            t, t_next = ts[i], ts[i + 1]
+            rows = 2 * bsz if do_cfg else bsz
+            x_in = torch.cat([xt, xt], dim=0) if do_cfg else xt
+            v = dit_decoder(model, cfg, x_in, t.expand(rows), t.expand(rows),
+                            ctx, cross_kv_cache=kv)
+            if do_cfg:
+                v_cond, v_uncond = v.chunk(2, dim=0)
+                vt = v_cond
+                if cfg_interval[0] <= ts_host[i] <= cfg_interval[1]:
+                    if use_adg:
+                        vt = adg_step(xt, v_cond, v_uncond, t,
+                                      guidance_scale=guidance_scale)
+                    else:
+                        vt, momentum = apg_step(v_cond, v_uncond, momentum,
+                                                guidance_scale=guidance_scale)
+            else:
+                vt = v
+            if infer_method == "sde":
+                noise = step_noise(xt, generator, noise_rows)
+                # renoise at the UNSHIFTED linear timestep 1 - (i+1)/n, n the
+                # step count after cover-noise truncation (not the next
+                # schedule value: the two agree only at shift 1)
+                lin_next = 1.0 - torch.tensor(float(i + 1), dtype=dtype) / n
+                xt = renoise(get_x0_from_noise(xt, vt, t.expand(bsz)),
+                             lin_next, noise)
+            else:
+                xt = xt - vt * (t - t_next)
+        trace.count("dit_steps")
     return xt

@@ -58,6 +58,7 @@ from acestep_torch.utils.audio import (
     AudioSaver, generate_uuid_from_params, load_audio, peak_normalize,
 )
 from acestep_torch.utils.memory import is_oom_error
+from acestep_torch.utils import trace
 from acestep_torch.utils.progress import ProgressEstimator, ProgressTicker
 from acestep_torch.utils.weights import dit_from_jax, vae_from_jax
 
@@ -80,8 +81,10 @@ def _degrade_plan(e: Exception, chunk: int, groups: int, *,
     if not is_oom_error(e):
         raise e
     if groups > 1:
+        trace.count("vae_plan_retries")
         return chunk, max(1, groups // 2)
     if chunk > min_chunk:
+        trace.count("vae_plan_retries")
         return max(min_chunk, chunk // 2), 1
     raise e
 
@@ -127,21 +130,22 @@ def trajectory(model, cfg: DiTConfig, inputs: Dict[str, torch.Tensor], *,
     codes = {k: inputs[k] for k in ("audio_codes",
                                     "audio_codes_valid_frames")
              if k in inputs}
-    enc, _m, ctx = prepare_condition(
-        model, cfg, text_hidden_states=inputs["text_hidden_states"],
-        text_attention_mask=inputs["text_attention_mask"],
-        src_latents=inputs["src_latents"], is_covers=inputs["is_covers"],
-        **common, **codes)
-    cond = ConditionSet.build(model, cfg, enc, ctx)
-    cond_nc = None
-    if "non_cover_text_hidden_states" in inputs:
-        enc_nc, _m2, ctx_nc = prepare_condition(
-            model, cfg,
-            text_hidden_states=inputs["non_cover_text_hidden_states"],
-            text_attention_mask=inputs["non_cover_text_attention_mask"],
-            src_latents=inputs["silence_src"],
-            is_covers=torch.zeros_like(inputs["is_covers"]), **common)
-        cond_nc = ConditionSet.build(model, cfg, enc_nc, ctx_nc)
+    with trace.span("dit.condition"):
+        enc, _m, ctx = prepare_condition(
+            model, cfg, text_hidden_states=inputs["text_hidden_states"],
+            text_attention_mask=inputs["text_attention_mask"],
+            src_latents=inputs["src_latents"], is_covers=inputs["is_covers"],
+            **common, **codes)
+        cond = ConditionSet.build(model, cfg, enc, ctx)
+        cond_nc = None
+        if "non_cover_text_hidden_states" in inputs:
+            enc_nc, _m2, ctx_nc = prepare_condition(
+                model, cfg,
+                text_hidden_states=inputs["non_cover_text_hidden_states"],
+                text_attention_mask=inputs["non_cover_text_attention_mask"],
+                src_latents=inputs["silence_src"],
+                is_covers=torch.zeros_like(inputs["is_covers"]), **common)
+            cond_nc = ConditionSet.build(model, cfg, enc_nc, ctx_nc)
 
     B, T = inputs["src_latents"].shape[:2]
     device = inputs["src_latents"].device
@@ -167,8 +171,10 @@ def trajectory(model, cfg: DiTConfig, inputs: Dict[str, torch.Tensor], *,
         null_cond = None
         if guidance_scale > 1.0:
             # the null condition keeps the conditional context latents
-            null = model.null_condition_emb.to(enc.dtype).expand(enc.shape)
-            null_cond = ConditionSet.build(model, cfg, null, ctx)
+            with trace.span("dit.condition"):
+                null = model.null_condition_emb.to(enc.dtype).expand(
+                    enc.shape)
+                null_cond = ConditionSet.build(model, cfg, null, ctx)
         x0 = sample_guided(model, cfg, x_init=x_init, schedule=schedule,
                            cond=cond, null_cond=null_cond,
                            cond_non_cover=cond_nc, cover_steps=cover_steps,
@@ -598,16 +604,19 @@ class AceStepHandler:
         retries."""
         while True:
             try:
-                audio = tiled_decode(self.vae, self.vae_cfg, z.to(self.dtype),
-                                     chunk_size=chunk,
-                                     parallel_windows=groups).float()
-                peak = audio.abs().amax(dim=(1, 2), keepdim=True)
-                scale = peak.clamp_min(1e-8) / 32767.0
-                i16 = torch.clamp(torch.round(audio / scale), -32768,
-                                  32767).to(torch.int16)
-                del audio
-                i16, peak = i16.cpu().numpy(), peak.cpu().numpy()
-                return i16.astype(np.float32) * (peak / 32767.0)
+                with trace.span("vae.decode", batch=int(z.shape[0]),
+                                frames=int(z.shape[1])):
+                    audio = tiled_decode(self.vae, self.vae_cfg,
+                                         z.to(self.dtype), chunk_size=chunk,
+                                         parallel_windows=groups).float()
+                    peak = audio.abs().amax(dim=(1, 2), keepdim=True)
+                    scale = peak.clamp_min(1e-8) / 32767.0
+                    i16 = torch.clamp(torch.round(audio / scale), -32768,
+                                      32767).to(torch.int16)
+                    del audio
+                with trace.span("vae.transfer"):
+                    i16, peak = i16.cpu().numpy(), peak.cpu().numpy()
+                    return i16.astype(np.float32) * (peak / 32767.0)
             except RuntimeError as e:        # the ladder re-raises the rest
                 chunk, groups = _degrade_plan(e, chunk, groups)
 
@@ -805,6 +814,7 @@ class AceStepHandler:
                        if audio_cover_strength < 1.0 else None)
         return schedule, start_t, cover_steps, n_steps
 
+    @trace.scoped
     def generate_music(
         self,
         captions: Union[str, Sequence[str]],
@@ -848,7 +858,7 @@ class AceStepHandler:
         if infer_method not in ("ode", "sde"):
             raise ValueError(f"invalid infer_method {infer_method!r}: "
                              f"expected 'ode' or 'sde'")
-        t_start = time.time()
+        render = trace.begin("render")
         time_costs: Dict[str, float] = {}
         cfg = self.cfg
         C = cfg.audio_acoustic_hidden_dim
@@ -895,7 +905,7 @@ class AceStepHandler:
                         for i in (list(instructions) * B)[:B]]
 
         # ---- source audio -> latents, outpainting, frame geometry
-        t0 = time.time()
+        stage = trace.begin("render.prepare", stage=True)
 
         def _norm_repaint(v):
             # per-row lists; scalars broadcast; [] means no repaint
@@ -1019,10 +1029,10 @@ class AceStepHandler:
             if repaint_any:
                 chunk_masks = np.broadcast_to(chunk[..., None],
                                               (B, T, C)).astype(np.float32)
-        time_costs["prepare_time_cost"] = time.time() - t0
+        time_costs["prepare_time_cost"] = stage.end()
 
         # ---- timbre references, code matrix, text conditioning
-        t0 = time.time()
+        stage = trace.begin("render.text", stage=True)
         refer_packed, refer_order = self._prepare_refer(refer_audios, B)
         codes_inputs = {}
         if has_codes:
@@ -1063,8 +1073,8 @@ class AceStepHandler:
                                (0, 0)))
                 nc_m = np.pad(nc_m[:, :L],
                               ((0, 0), (0, max(0, L - nc_m.shape[1]))))
-        time_costs["text_encode_time_cost"] = time.time() - t0
-        t0 = time.time()
+        time_costs["text_encode_time_cost"] = stage.end()
+        stage = trace.begin("render.dispatch", stage=True)
 
         schedule, start_t, cover_steps, n_steps = self._schedule(
             shift=shift, infer_steps=infer_steps, timesteps=timesteps,
@@ -1110,10 +1120,10 @@ class AceStepHandler:
                 noise_arr = np.tile(noise_arr, (reps, 1, 1))[:B]
             inputs["initial_noise"] = self._tensor(np.broadcast_to(
                 noise_arr, (B, T, C)).copy())
-        time_costs["dispatch_prep_time_cost"] = time.time() - t0
+        time_costs["dispatch_prep_time_cost"] = stage.end()
 
         # ---- trajectory
-        t0 = time.time()
+        stage = trace.begin("diffusion", stage=True, batch=B, frames=T)
         est = self.progress_estimator.estimate_seconds(
             n_steps, B, T_req / LATENT_RATE)
         with ProgressTicker(est, progress_callback or (lambda f: None)):
@@ -1123,9 +1133,10 @@ class AceStepHandler:
                 guidance_scale=guidance_scale, use_adg=use_adg,
                 cfg_interval=cfg_interval, cover_steps=cover_steps)
             # two scalars bring the trajectory to an end on the device
-            finite = bool(torch.isfinite(x0).all())
-            nonzero = bool(x0.abs().sum() > 0)
-        dt = time.time() - t0
+            with trace.span("diffusion.sync"):
+                finite = bool(torch.isfinite(x0).all())
+                nonzero = bool(x0.abs().sum() > 0)
+        dt = stage.end()
         time_costs["diffusion_time_cost"] = dt
         self.progress_estimator.record(n_steps, B, T_req / LATENT_RATE, dt)
         if not finite:
@@ -1143,35 +1154,46 @@ class AceStepHandler:
             spans = spans[:B]
             is_cover_rows = is_cover_rows[:B]
 
-        t0 = time.time()
+        stage = trace.begin("vae", stage=True)
         audio = self.decode_latents(pred)[:, : T_req * VAE_HOP]
-        time_costs["vae_decode_time_cost"] = time.time() - t0
-        t0 = time.time()
+        time_costs["vae_decode_time_cost"] = stage.end()
+        stage = trace.begin("render.fetch", stage=True)
         pred = pred.cpu().numpy()
-        time_costs["latent_fetch_time_cost"] = time.time() - t0
-        t0 = time.time()
+        time_costs["latent_fetch_time_cost"] = stage.end()
+        stage = trace.begin("render.postprocess", stage=True)
         audios = []
         for i in range(B):
             a = audio[i]
             if normalize and normalize_db <= 0.0:
                 a = peak_normalize(a, normalize_db)
             audios.append(a)
-        time_costs["postprocess_time_cost"] = time.time() - t0
+        time_costs["postprocess_time_cost"] = stage.end()
 
         paths = None
-        t_save = time.time()
+        # one `save` span a song, each opening where the last closed: the
+        # first holds the saver's set-up, and together they make
+        # audio_conversion_time
+        t_save = time.monotonic()
         if save_dir:
             saver = AudioSaver(save_dir)
             lora_sig = self.lora.signature() if self.lora is not None else ""
             paths = []
+            t = t_save
             for i, a in enumerate(audios):
+                stage = trace.begin("save", stage=True, t0=t,
+                                    format=audio_format)
                 uid = generate_uuid_from_params({
                     "caption": captions[i], "lyrics": lyrics[i],
                     "meta": meta_strs[i], "seed": seeds_list[i],
                     "task": task, "lora": lora_sig})
                 paths.append(saver.save_audio(a, uid, audio_format))
-            time_costs["audio_conversion_time"] = time.time() - t_save
-        time_costs["total_time_cost"] = time.time() - t_start
+                stage.end()
+                t = stage.t1
+            time_costs["audio_conversion_time"] = t - t_save
+        render.set(batch=B, frames=T_req, format=audio_format)
+        time_costs["total_time_cost"] = render.end()
+        trace.count("renders")
+        trace.count("songs", B)
         time_costs["dit_total_time_cost"] = (
             time_costs["total_time_cost"]
             - time_costs.get("audio_conversion_time", 0.0))

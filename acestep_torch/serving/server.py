@@ -50,6 +50,7 @@ from acestep_torch.serving.jobstore import (
     LocalResultCache,
 )
 from acestep_torch.serving.schemas import GenerateMusicRequest
+from acestep_torch.utils import trace
 from acestep_torch.utils.geninfo import build_generation_info
 from acestep_torch.utils.path_safety import safe_path
 
@@ -244,6 +245,10 @@ class AppState:
             if persist_dir else None)
         self.job_queue: "queue.Queue" = queue.Queue(maxsize=QUEUE_MAXSIZE)
         self.pending_ids: List[str] = []
+        # with tracing on, (monotonic stamp, thread) of each queued job's
+        # enqueue by job id (pending_lock), ended by the claim as its
+        # serve.queue span
+        self.enqueued_at: Dict[str, tuple] = {}
         self.pending_lock = threading.Lock()
         self.stats_lock = threading.Lock()
         # the one device lock: weight swaps, renders, every call into the
@@ -395,23 +400,36 @@ class AppState:
             try:
                 if not self._claim_job(job_id, req):
                     continue
-                group, leftovers = self._drain_compatible(job_id, req)
-                if len(group) > 1:
-                    try:
-                        self._run_job_group(group)
-                    except Exception:   # e.g. lazy-init raise: fail the
-                        tb = traceback.format_exc(limit=10)   # whole group
-                        for jid2, _r in group:
-                            self.job_store.mark_failed(jid2, tb)
-                            self._cache_result(jid2)
-                else:
-                    self._safe_run_one(job_id, req)
+                with trace.span("serve.render", [job_id]) as render:
+                    group, leftovers = self._drain_compatible(job_id, req)
+                    render.requests = [jid for jid, _r in group]
+                    render.set(jobs=len(group))
+                    if len(group) > 1:
+                        try:
+                            self._run_job_group(group)
+                        except Exception:   # e.g. lazy-init raise: fail
+                            tb = traceback.format_exc(limit=10)  # the group
+                            for jid2, _r in group:
+                                self.job_store.mark_failed(jid2, tb)
+                                self._cache_result(jid2)
+                    else:
+                        self._safe_run_one(job_id, req)
                 # drained-but-incompatible job: runs next, FIFO preserved
                 for jid2, req2 in leftovers:
-                    self._safe_run_one(jid2, req2)
+                    with trace.span("serve.render", [jid2], jobs=1):
+                        self._safe_run_one(jid2, req2)
             finally:
                 self.job_queue.task_done()
                 self.job_store.cleanup()   # age out finished jobs (24 h)
+
+    def _add_pending(self, job_id: str) -> int:
+        """Note a job about to be queued; its position in the queue."""
+        with self.pending_lock:
+            self.pending_ids.append(job_id)
+            if trace.enabled():
+                self.enqueued_at[job_id] = (time.monotonic(),
+                                            threading.get_ident())
+            return len(self.pending_ids)
 
     def _claim_job(self, job_id: str, req) -> bool:
         """Pending-list bookkeeping + canceled-while-queued check.
@@ -419,10 +437,15 @@ class AppState:
         with self.pending_lock:
             if job_id in self.pending_ids:
                 self.pending_ids.remove(job_id)
+            enqueued = self.enqueued_at.pop(job_id, None)
         rec = self.job_store.get(job_id)
         if rec is not None and rec.status != "queued":
             self._cleanup_request_temp_files(req)
             return False
+        if enqueued is not None:
+            t0, thread = enqueued
+            trace.record("serve.queue", t0, time.monotonic(), [job_id],
+                         thread=thread)
         return True
 
     def _safe_run_one(self, job_id: str, req) -> None:
@@ -501,10 +524,12 @@ class AppState:
         if results and all(not r.success for r in results):
             # the fused render failed as a unit (e.g. batch OOM): retry
             # each job on the plain path so one batch cannot fail N jobs
+            trace.count("serve_group_fallbacks")
             for jid, req in group:
                 self._safe_run_one(jid, req)
             return
         elapsed = time.time() - t0
+        finish = trace.begin("serve.finish")
         for (jid, req), (params, config), result in zip(group, jobs,
                                                         results):
             payload = _result_payload(result)
@@ -521,6 +546,7 @@ class AppState:
                 self.job_store.mark_failed(
                     jid, result.error or result.status_message)
             self._cache_result(jid)
+        finish.end()
         with self.stats_lock:
             # ETA bookkeeping: a fused render costs elapsed/N per song
             per_job = elapsed / max(1, len(group))
@@ -543,6 +569,7 @@ class AppState:
             with self.pending_lock:
                 if job_id in self.pending_ids:
                     self.pending_ids.remove(job_id)
+                self.enqueued_at.pop(job_id, None)
             self.job_store.mark_failed(job_id, "canceled by user")
             self._cache_result(job_id)
             return {"status": "canceled"}
@@ -727,12 +754,13 @@ class AppState:
             payload["prompt"] = params.caption
             payload["lyrics"] = params.lyrics
             payload["audio_format"] = config.audio_format
-            if result.success:
-                self.job_store.mark_succeeded(job_id, payload)
-            else:
-                self.job_store.mark_failed(
-                    job_id, result.error or result.status_message)
-            self._cache_result(job_id)
+            with trace.span("serve.finish"):
+                if result.success:
+                    self.job_store.mark_succeeded(job_id, payload)
+                else:
+                    self.job_store.mark_failed(
+                        job_id, result.error or result.status_message)
+                self._cache_result(job_id)
 
             elapsed = time.time() - t0
             with self.stats_lock:
@@ -930,7 +958,22 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- dispatch -----------------------------------------------------------
 
+    def _traced(self, method: str, fn) -> None:
+        """One `serve.http` span around a request's handling."""
+        with trace.span("serve.http", method=method,
+                        route=urlparse(self.path).path):
+            fn()
+
     def do_GET(self) -> None:  # noqa: N802
+        self._traced("GET", self._get)
+
+    def do_POST(self) -> None:  # noqa: N802
+        self._traced("POST", self._post)
+
+    def do_PUT(self) -> None:  # noqa: N802
+        self._traced("PUT", self._put)
+
+    def _get(self) -> None:
         url = urlparse(self.path)
         route = url.path.rstrip("/") or "/"
         # /health and the studio page stay open; everything else (audio
@@ -1022,7 +1065,7 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:
             self._send_json(wrap_response(None, 500, str(e)), 500)
 
-    def do_POST(self) -> None:  # noqa: N802
+    def _post(self) -> None:
         route = urlparse(self.path).path.rstrip("/")
         body = self._json_body()
         if not self.state.check_auth(body, self.headers.get("Authorization")):
@@ -1163,7 +1206,7 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:
             self._send_json(wrap_response(None, 500, str(e)), 500)
 
-    def do_PUT(self) -> None:  # noqa: N802
+    def _put(self) -> None:
         """PUT /v1/dataset/sample/{idx} — edit one sample (reference
         train_api_dataset_service.py:854)."""
         route = urlparse(self.path).path.rstrip("/")
@@ -1213,9 +1256,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(wrap_response(None, 400, str(e)), 400)
             return
         rec = state.job_store.create()
-        with state.pending_lock:
-            state.pending_ids.append(rec.job_id)
-            position = len(state.pending_ids)
+        position = state._add_pending(rec.job_id)
         state._cache_progress(rec.job_id, 0.0, "queued")
         try:
             state.job_queue.put_nowait((rec.job_id, req))
@@ -1224,6 +1265,7 @@ class _Handler(BaseHTTPRequestHandler):
             state._cache_result(rec.job_id)   # overwrite the 'queued' entry
             with state.pending_lock:
                 state.pending_ids.remove(rec.job_id)
+                state.enqueued_at.pop(rec.job_id, None)
             state._cleanup_request_temp_files(req)
             self._send_json(wrap_response(None, 503, "Queue full"), 503)
             return
@@ -1291,13 +1333,17 @@ class _Handler(BaseHTTPRequestHandler):
     def _get_metrics(self) -> None:
         """Prometheus text exposition (beyond the reference, which stops
         at the JSON /v1/stats): job counts by status, queue depth, rolling
-        average job wall, uptime, and on a CUDA device the caching
-        allocator's allocated and reserved bytes and the device total —
-        enough for standard alerting/dashboards with zero deps."""
+        average job wall, uptime, the program's counters (renders, songs,
+        DiT steps, the VAE's out-of-memory step-downs, fused renders
+        retried job by job, coalesced jobs, seconds by render stage), and
+        on a CUDA device the caching allocator's allocated and reserved
+        bytes and the device total — enough for standard
+        alerting/dashboards with zero deps."""
         state = self.state
         with state.stats_lock:
             avg = state.avg_job_seconds
             completed = state.completed_jobs
+            coalesced = state.coalesced_jobs_total
         stats = state.job_store.get_stats()
         lines = [
             "# HELP acestep_jobs Jobs by status in the retention window.",
@@ -1318,6 +1364,14 @@ class _Handler(BaseHTTPRequestHandler):
             "# TYPE acestep_uptime_seconds counter",
             f"acestep_uptime_seconds {time.time() - state.started_at:.0f}",
         ]
+        counts = dict(trace.counters, coalesced_jobs=coalesced)
+        for name, value in counts.items():
+            lines += [f"# TYPE acestep_{name}_total counter",
+                      f"acestep_{name}_total {value}"]
+        lines.append("# TYPE acestep_stage_seconds_total counter")
+        for stage, seconds in sorted(trace.stage_seconds.items()):
+            lines.append(f'acestep_stage_seconds_total{{stage="{stage}"}} '
+                         f"{seconds:.6f}")
         if state.device_total_bytes is not None:
             # the caching allocator's own counters: no CUDA call, so a
             # poll cannot disturb a worker's render or graph capture
@@ -1463,8 +1517,7 @@ class _Handler(BaseHTTPRequestHandler):
         model_name, _ = state._select_handler(req.model)
         model_id = openrouter.model_id_for(model_name)
         rec = state.job_store.create()
-        with state.pending_lock:
-            state.pending_ids.append(rec.job_id)
+        state._add_pending(rec.job_id)
         try:
             state.job_queue.put_nowait((rec.job_id, req))
         except queue.Full:
@@ -1472,6 +1525,7 @@ class _Handler(BaseHTTPRequestHandler):
             with state.pending_lock:
                 if rec.job_id in state.pending_ids:
                     state.pending_ids.remove(rec.job_id)
+                state.enqueued_at.pop(rec.job_id, None)
             state._cleanup_request_temp_files(req)
             self._send_json({"error": {"message": "Queue full",
                                        "code": 503}}, 503)

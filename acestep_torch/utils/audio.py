@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 
 from acestep_torch.constants import AUDIO_CHANNELS, SAMPLE_RATE
+from acestep_torch.utils import trace
 
 
 def _ffmpeg() -> Optional[str]:
@@ -184,6 +185,7 @@ def loudness_normalize(audio: np.ndarray, target_lufs: float = -14.0,
 def save_wav(path: str, audio: np.ndarray, sr: int = SAMPLE_RATE,
              *, subtype: str = "PCM_16") -> str:
     """audio (frames, channels) float in [-1,1] -> WAV file."""
+    encode = trace.begin("save.encode")
     audio = np.clip(np.asarray(audio, np.float32), -1.0, 1.0)
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     if subtype == "FLOAT32":
@@ -202,7 +204,8 @@ def save_wav(path: str, audio: np.ndarray, sr: int = SAMPLE_RATE,
                   (channels * 4).to_bytes(2, "little") +
                   (32).to_bytes(2, "little") +
                   b"data" + len(data).to_bytes(4, "little"))
-        with open(path, "wb") as f:
+        encode.end()
+        with trace.span("save.write"), open(path, "wb") as f:
             f.write(header + data)
         return str(path)
     if subtype == "PCM_16":
@@ -212,8 +215,10 @@ def save_wav(path: str, audio: np.ndarray, sr: int = SAMPLE_RATE,
         pcm = (audio * 2147483647.0).astype("<i4")
         width = 4
     else:
+        encode.end()
         raise ValueError(f"unsupported subtype {subtype}")
-    with wave.open(str(path), "wb") as f:
+    encode.end()
+    with trace.span("save.write"), wave.open(str(path), "wb") as f:
         f.setnchannels(audio.shape[1])
         f.setsampwidth(width)
         f.setframerate(sr)
@@ -256,11 +261,13 @@ class AudioSaver:
         if fmt == "flac":
             from acestep_torch.utils.flac import encode_flac
 
-            pcm = np.clip(np.asarray(audio, np.float32) * 32767.0,
-                          -32768, 32767).astype(np.int16)
+            with trace.span("save.encode"):
+                pcm = np.clip(np.asarray(audio, np.float32) * 32767.0,
+                              -32768, 32767).astype(np.int16)
+                data = encode_flac(pcm, sr)
             out = self.output_dir / f"{name}.flac"
-            with open(out, "wb") as f:
-                f.write(encode_flac(pcm, sr))
+            with trace.span("save.write"), open(out, "wb") as f:
+                f.write(data)
             return str(out)
         if fmt in self.FFMPEG:
             if not _ffmpeg():

@@ -1,61 +1,33 @@
-"""Named debug timers gated by per-subsystem switches.
+"""Named debug timers gated by per-subsystem switches: the span tracer's
+spans (`utils/trace.py`) under its debug switch.
 
-Capability parity with acestep/debug_utils.py
-(debug_start/debug_end pairs + module-scoped switches from env). Timings go
-to stderr; switches: ACESTEP_DEBUG=1 enables all,
-ACESTEP_DEBUG_<SUBSYSTEM>=1 enables one (e.g. ACESTEP_DEBUG_DIT)."""
+Capability parity with acestep/debug_utils.py (module-scoped switches
+from env). Timings go to stderr as `[debug] name: x ms`; switches:
+ACESTEP_DEBUG=1 enables all, ACESTEP_DEBUG_<SUBSYSTEM>=1 enables one
+(e.g. ACESTEP_DEBUG_DIT). The same switches print the render's own stage
+spans as they close."""
 
 from __future__ import annotations
 
-import os
-import sys
-import threading
-import time
-from typing import Dict, Optional
+from typing import Optional
 
-_active: Dict[str, float] = {}
-_lock = threading.Lock()
+from acestep_torch.utils.trace import Span, debug_enabled
+
+__all__ = ["debug_enabled", "debug_timer"]
 
 
-def debug_enabled(subsystem: str = "") -> bool:
-    if os.environ.get("ACESTEP_DEBUG"):
-        return True
-    if subsystem:
-        return bool(os.environ.get(f"ACESTEP_DEBUG_{subsystem.upper()}"))
-    return False
-
-
-def debug_start(name: str, subsystem: str = "") -> None:
-    if not debug_enabled(subsystem):
-        return
-    with _lock:
-        _active[name] = time.time()
-
-
-def debug_end(name: str, subsystem: str = "") -> Optional[float]:
-    if not debug_enabled(subsystem):
-        return None
-    with _lock:
-        t0 = _active.pop(name, None)
-    if t0 is None:
-        return None
-    elapsed = time.time() - t0
-    print(f"[debug] {name}: {elapsed * 1000:.1f} ms", file=sys.stderr,
-          flush=True)
-    return elapsed
-
-
-class debug_timer:
-    """Context-manager form: `with debug_timer('vae_decode', 'vae'): ...`"""
+class debug_timer(Span):
+    """Context-manager form: `with debug_timer('vae_decode', 'vae') as t:`;
+    `t.elapsed` holds the seconds when the subsystem's switch is on (read
+    as the timer opens), else None."""
 
     def __init__(self, name: str, subsystem: str = ""):
-        self.name = name
+        super().__init__(name)
         self.subsystem = subsystem
         self.elapsed: Optional[float] = None
 
-    def __enter__(self):
-        debug_start(self.name, self.subsystem)
-        return self
-
     def __exit__(self, *exc):
-        self.elapsed = debug_end(self.name, self.subsystem)
+        seconds = self.end()
+        if self._print:
+            self.elapsed = seconds
+        return False

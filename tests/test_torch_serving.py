@@ -215,11 +215,18 @@ def _multipart(fields, files):
                  "Content-Length": str(len(out))}
 
 
+# the port's program counters (utils/trace.py), which the JAX server
+# does not export
+_PORT_COUNTERS = re.compile(
+    r"acestep_(renders|songs|dit_steps|vae_plan_retries|"
+    r"serve_group_fallbacks|coalesced_jobs|stage_seconds)_total")
+
+
 def _metrics_lines(raw):
     text = raw.decode() if isinstance(raw, bytes) else raw
     return [re.sub(r"^(acestep_(uptime_seconds|avg_job_seconds)) .*",
                    r"\1 <v>", line) for line in text.splitlines()
-            if "hbm" not in line]
+            if "hbm" not in line and not _PORT_COUNTERS.search(line)]
 
 
 def session(srv):
