@@ -15,7 +15,10 @@ the forward passes are functions over it, as in the JAX package:
   layer at every length: the hand-written kernel on a CUDA device, its
   dense plain version on the CPU. Layers alternate banded (|i-j| <= W) and
   full attention. A config whose `attention_impl` is "dense" takes the
-  plain masked attention instead (`resolve_attention_impl`).
+  plain masked attention instead (`resolve_attention_impl`);
+- a decoder step is a sequence of segments cut at each layer's two
+  attention cores; a sampler's step on a CUDA device replays them as CUDA
+  graphs (`models/dit_graphs.py`).
 """
 
 from __future__ import annotations
@@ -29,11 +32,11 @@ from torch.utils.checkpoint import checkpoint
 
 from acestep_torch.config import DiTConfig
 from acestep_torch.ops.basic import (
-    MLP, Attention, RMSNorm, attention, attention_flash, attention_kv,
-    cross_kv, linear, mlp, rms_norm, rope_cos_sin, seeded_init_,
-    timestep_sinusoidal,
+    MLP, Attention, RMSNorm, _sdpa, attention, cross_kv, cross_q, linear, mlp,
+    rms_norm, rope_cos_sin, seeded_init_, self_qkv, timestep_sinusoidal,
 )
 from acestep_torch.ops.conv import conv1d, conv1d_transpose
+from acestep_torch.ops import flash_attention as fa
 from acestep_torch.ops.fsq import fsq_indices_to_codes, fsq_quantize
 from acestep_torch.ops.masks import bidirectional_mask
 
@@ -441,18 +444,117 @@ def resolve_attention_impl(cfg: DiTConfig) -> str:
     return "dense" if cfg.attention_impl == "dense" else "flash"
 
 
-def _self_attention_fn(cfg: DiTConfig, L: int, rope, device):
-    """fn(attn_module, x, window) -> the decoder's self-attention output,
+def layer_window(cfg: DiTConfig, i: int) -> Optional[int]:
+    """Layer i's self-attention band W (|i-j| <= W), None when full."""
+    return cfg.sliding_window if cfg.layer_is_sliding(i) else None
+
+
+def self_attention_core(cfg: DiTConfig, L: int, device):
+    """fn(q, k, v, window) -> the decoder's self-attention (B, L, Hq, D),
     by `resolve_attention_impl(cfg)`; the dense masks are built once."""
-    heads = dict(num_heads=cfg.num_attention_heads,
-                 num_kv_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim,
-                 rope=rope, eps=cfg.rms_norm_eps)
     if resolve_attention_impl(cfg) == "flash":
-        return lambda ap, x, window: attention_flash(ap, x, window=window,
-                                                     **heads)
+        return lambda q, k, v, window: fa.flash_attention(q, k, v,
+                                                          window=window)
     masks = {w: bidirectional_mask(L, window=w, device=device)
              for w in (None, cfg.sliding_window)}
-    return lambda ap, x, window: attention(ap, x, mask=masks[window], **heads)
+    return lambda q, k, v, window: _sdpa(q, k, v, masks[window])
+
+
+def decoder_rope(cfg: DiTConfig, L: int, dtype, device):
+    return rope_cos_sin(L, cfg.head_dim, cfg.rope_theta, dtype=dtype,
+                        device=device)
+
+
+# A decoder step is cut into segments at the two places where per-call
+# data enters each layer: its self-attention core (the flash kernel) and
+# its cross-attention core over the trajectory's K/V. `dit_decoder` runs
+# them in order; `models/dit_graphs.py` captures them as CUDA graphs and
+# replays them between the two cores, which stay eager.
+
+
+def _modulation(lp: DiTLayer, tproj: torch.Tensor, dtype):
+    """Layer lp's AdaLN rows (B, 1, H): shift, scale and gate of its
+    self-attention, then of its MLP."""
+    mods = lp.scale_shift_table[None].to(dtype) + tproj     # (B, 6, H)
+    return [mods[:, j:j + 1] for j in range(6)]
+
+
+def decoder_in(p: Decoder, cfg: DiTConfig, xt: torch.Tensor,
+               timestep: torch.Tensor, timestep_r: torch.Tensor,
+               context_latents: torch.Tensor):
+    """The timestep embeddings and the patched input: (h (B, L, H),
+    tproj (B, 6, H), temb (B, H)) for (B, T, 64) noisy latents, T padded
+    to a multiple of the patch size."""
+    dtype = xt.dtype
+    temb_t, proj_t = _timestep_embed(p.time_embed, timestep, dtype)
+    temb_r, proj_r = _timestep_embed(p.time_embed_r, timestep - timestep_r,
+                                     dtype)
+    h = torch.cat([context_latents.to(dtype), xt], dim=-1)
+    pad = (-xt.shape[1]) % cfg.patch_size
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+    h = conv1d(p.proj_in, h, stride=cfg.patch_size)
+    return h, proj_t + proj_r, temb_t + temb_r
+
+
+def self_attn_in(lp: DiTLayer, cfg: DiTConfig, h: torch.Tensor,
+                 tproj: torch.Tensor, rope):
+    """The self-attention core's inputs (q, k, v): modulation, norm,
+    projections, QK-norm, RoPE."""
+    shift, scale = _modulation(lp, tproj, h.dtype)[:2]
+    x = rms_norm(lp.self_attn_norm, h, cfg.rms_norm_eps) * (1 + scale) \
+        + shift
+    return self_qkv(lp.self_attn, x.to(h.dtype),
+                    num_heads=cfg.num_attention_heads,
+                    num_kv_heads=cfg.num_key_value_heads,
+                    head_dim=cfg.head_dim, rope=rope, eps=cfg.rms_norm_eps)
+
+
+def self_attn_out(lp: DiTLayer, cfg: DiTConfig, h: torch.Tensor,
+                  a: torch.Tensor, tproj: torch.Tensor):
+    """(h, cq): the self-attention core's output `a` projected, gated and
+    added to h, then the cross-attention's norm and query."""
+    gate = _modulation(lp, tproj, h.dtype)[2]
+    B, L = h.shape[:2]
+    h = h + linear(lp.self_attn.o_proj, a.reshape(B, L, -1)) * gate
+    cq = cross_q(lp.cross_attn, rms_norm(lp.cross_attn_norm, h,
+                                         cfg.rms_norm_eps),
+                 num_heads=cfg.num_attention_heads, head_dim=cfg.head_dim,
+                 eps=cfg.rms_norm_eps)
+    return h, cq
+
+
+def cross_out(lp: DiTLayer, cfg: DiTConfig, h: torch.Tensor,
+              ca: torch.Tensor, tproj: torch.Tensor) -> torch.Tensor:
+    """The cross-attention core's output `ca` projected and added to h,
+    then the modulated MLP and its gated residual: the layer's output."""
+    c_shift, c_scale, c_gate = _modulation(lp, tproj, h.dtype)[3:]
+    dtype = h.dtype
+    B, L = h.shape[:2]
+    h = h + linear(lp.cross_attn.o_proj, ca.reshape(B, L, -1))
+    x = rms_norm(lp.mlp_norm, h, cfg.rms_norm_eps) * (1 + c_scale) + c_shift
+    return (h + mlp(lp.mlp, x.to(dtype)) * c_gate).to(dtype)
+
+
+def decoder_out(p: Decoder, cfg: DiTConfig, h: torch.Tensor,
+                temb: torch.Tensor, frames: int) -> torch.Tensor:
+    """norm_out, modulated by temb, and proj_out: (B, frames, 64)."""
+    dtype = h.dtype
+    mods = p.scale_shift_table[None].to(dtype) + temb[:, None]
+    shift, scale = mods[:, 0:1], mods[:, 1:2]
+    h = rms_norm(p.norm_out, h, cfg.rms_norm_eps) * (1 + scale) + shift
+    h = conv1d_transpose(p.proj_out, h.to(dtype), stride=cfg.patch_size)
+    return h[:, :frames]
+
+
+def _cross_core(lp: DiTLayer, cfg: DiTConfig, cq: torch.Tensor, kv,
+                return_weights: bool = False):
+    """The cross-attention core, unmasked, over `kv`: the layer's (k, v)
+    or the condition sequence to project them from."""
+    if not isinstance(kv, tuple):
+        kv = cross_kv(lp.cross_attn, kv, num_kv_heads=cfg.num_key_value_heads,
+                      head_dim=cfg.head_dim, eps=cfg.rms_norm_eps)
+    return _sdpa(cq, *kv, None, return_weights=return_weights)
 
 
 def dit_decoder(model: AceStepDiT, cfg: DiTConfig, xt: torch.Tensor,
@@ -469,68 +571,41 @@ def dit_decoder(model: AceStepDiT, cfg: DiTConfig, xt: torch.Tensor,
     non-reentrant): its activations are recomputed in the backward, as the
     JAX package rematerialises each scan step. The recompute reads the
     layer's parameters again, so a caller that swaps them for one forward
-    (`torch.func.functional_call`) runs the backward inside the swap."""
+    (`torch.func.functional_call`) runs the backward inside the swap.
+
+    With `cross_kv_cache` (the samplers' call) on a CUDA device in
+    inference, the step runs as CUDA graph replays between its eager
+    attention cores (`models/dit_graphs.py`), with the same result."""
+    if cross_kv_cache is not None and not remat:
+        from acestep_torch.models import dit_graphs
+
+        out = dit_graphs.replay_step(model, cfg, xt, timestep, timestep_r,
+                                     context_latents, cross_kv_cache)
+        if out is not None:
+            return out
     p = model.decoder
-    eps = cfg.rms_norm_eps
-    dtype = xt.dtype
-    B, T0, _ = xt.shape
-
-    temb_t, proj_t = _timestep_embed(p.time_embed, timestep, dtype)
-    temb_r, proj_r = _timestep_embed(p.time_embed_r, timestep - timestep_r,
-                                     dtype)
-    temb = temb_t + temb_r
-    tproj = proj_t + proj_r                                   # (B, 6, H)
-
-    h = torch.cat([context_latents.to(dtype), xt], dim=-1)
-    pad = (-T0) % cfg.patch_size
-    if pad:
-        h = F.pad(h, (0, 0, 0, pad))
-    h = conv1d(p.proj_in, h, stride=cfg.patch_size)           # (B, L, H)
+    h, tproj, temb = decoder_in(p, cfg, xt, timestep, timestep_r,
+                                context_latents)
     L = h.shape[1]
-
     if cross_kv_cache is None:
-        enc = linear(p.condition_embedder, encoder_hidden_states.to(dtype))
-    rope = rope_cos_sin(L, cfg.head_dim, cfg.rope_theta, dtype=dtype,
-                        device=h.device)
-    self_attention = _self_attention_fn(cfg, L, rope, h.device)
+        enc = linear(p.condition_embedder, encoder_hidden_states.to(xt.dtype))
+    rope = decoder_rope(cfg, L, xt.dtype, h.device)
+    self_core = self_attention_core(cfg, L, h.device)
 
     def layer(i: int, lp: DiTLayer, h: torch.Tensor) -> torch.Tensor:
-        mods = lp.scale_shift_table[None].to(dtype) + tproj   # (B, 6, H)
-        shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = [
-            mods[:, j:j + 1] for j in range(6)]
-        norm_h = rms_norm(lp.self_attn_norm, h, eps) * (1 + scale_msa) \
-            + shift_msa
-        window = cfg.sliding_window if cfg.layer_is_sliding(i) else None
-        h = h + self_attention(lp.self_attn, norm_h.to(dtype),
-                               window) * gate_msa
-
-        norm_h = rms_norm(lp.cross_attn_norm, h, eps)
-        if cross_kv_cache is None:
-            ca = attention(lp.cross_attn, norm_h,
-                           num_heads=cfg.num_attention_heads,
-                           num_kv_heads=cfg.num_key_value_heads,
-                           head_dim=cfg.head_dim, kv_src=enc, eps=eps)
-        else:
-            ca = attention_kv(lp.cross_attn, norm_h, cross_kv_cache[0][i],
-                              cross_kv_cache[1][i],
-                              num_heads=cfg.num_attention_heads,
-                              head_dim=cfg.head_dim, eps=eps)
-        h = h + ca
-
-        norm_h = rms_norm(lp.mlp_norm, h, eps) * (1 + c_scale) + c_shift
-        return (h + mlp(lp.mlp, norm_h.to(dtype)) * c_gate).to(dtype)
+        q, k, v = self_attn_in(lp, cfg, h, tproj, rope)
+        h, cq = self_attn_out(lp, cfg, h,
+                              self_core(q, k, v, layer_window(cfg, i)), tproj)
+        kv = enc if cross_kv_cache is None else (cross_kv_cache[0][i],
+                                                 cross_kv_cache[1][i])
+        return cross_out(lp, cfg, h, _cross_core(lp, cfg, cq, kv), tproj)
 
     for i, lp in enumerate(p.layers):
         if remat:
             h = checkpoint(layer, i, lp, h, use_reentrant=False)
         else:
             h = layer(i, lp, h)
-
-    mods = p.scale_shift_table[None].to(dtype) + temb[:, None]
-    shift, scale = mods[:, 0:1], mods[:, 1:2]
-    h = rms_norm(p.norm_out, h, eps) * (1 + scale) + shift
-    h = conv1d_transpose(p.proj_out, h.to(dtype), stride=cfg.patch_size)
-    return h[:, :T0]
+    return decoder_out(p, cfg, h, temb, xt.shape[1])
 
 
 def dit_decoder_attn_capture(model: AceStepDiT, cfg: DiTConfig,
@@ -547,55 +622,29 @@ def dit_decoder_attn_capture(model: AceStepDiT, cfg: DiTConfig,
     self-attention is `dit_decoder`'s."""
     if not capture:
         raise ValueError("capture must map at least one layer -> heads")
-    p = model.decoder
-    eps = cfg.rms_norm_eps
-    dtype = xt.dtype
-    T0 = xt.shape[1]
     n_layers = early_exit if early_exit is not None else max(capture) + 1
     if max(capture) >= n_layers:
         raise ValueError(
             f"capture layer {max(capture)} is not run under "
             f"early_exit={early_exit} — it would be silently skipped")
-
-    _, proj_t = _timestep_embed(p.time_embed, timestep, dtype)
-    _, proj_r = _timestep_embed(p.time_embed_r, timestep - timestep_r, dtype)
-    tproj = proj_t + proj_r
-
-    h = torch.cat([context_latents.to(dtype), xt], dim=-1)
-    pad = (-T0) % cfg.patch_size
-    if pad:
-        h = F.pad(h, (0, 0, 0, pad))
-    h = conv1d(p.proj_in, h, stride=cfg.patch_size)
+    p = model.decoder
+    h, tproj, _ = decoder_in(p, cfg, xt, timestep, timestep_r,
+                             context_latents)
     L = h.shape[1]
-    enc = linear(p.condition_embedder, encoder_hidden_states.to(dtype))
-    rope = rope_cos_sin(L, cfg.head_dim, cfg.rope_theta, dtype=dtype,
-                        device=h.device)
-    self_attention = _self_attention_fn(cfg, L, rope, h.device)
-    heads = dict(num_heads=cfg.num_attention_heads,
-                 num_kv_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim,
-                 eps=eps)
+    enc = linear(p.condition_embedder, encoder_hidden_states.to(xt.dtype))
+    rope = decoder_rope(cfg, L, xt.dtype, h.device)
+    self_core = self_attention_core(cfg, L, h.device)
 
     captured = {}
     for i in range(n_layers):
         lp = p.layers[i]
-        mods = lp.scale_shift_table[None].to(dtype) + tproj
-        shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = [
-            mods[:, j:j + 1] for j in range(6)]
-        norm_h = rms_norm(lp.self_attn_norm, h, eps) * (1 + scale_msa) \
-            + shift_msa
-        window = cfg.sliding_window if cfg.layer_is_sliding(i) else None
-        h = h + self_attention(lp.self_attn, norm_h.to(dtype),
-                               window) * gate_msa
-
-        norm_h = rms_norm(lp.cross_attn_norm, h, eps)
-        ca, probs = attention(lp.cross_attn, norm_h, kv_src=enc,
-                              return_weights=True, **heads)
+        q, k, v = self_attn_in(lp, cfg, h, tproj, rope)
+        h, cq = self_attn_out(lp, cfg, h,
+                              self_core(q, k, v, layer_window(cfg, i)), tproj)
+        ca, probs = _cross_core(lp, cfg, cq, enc, return_weights=True)
         if i in capture:
             captured[i] = probs[:, list(capture[i])].float()
-        h = h + ca
-
-        norm_h = rms_norm(lp.mlp_norm, h, eps) * (1 + c_scale) + c_shift
-        h = (h + mlp(lp.mlp, norm_h.to(dtype)) * c_gate).to(dtype)
+        h = cross_out(lp, cfg, h, ca, tproj)
     return captured
 
 

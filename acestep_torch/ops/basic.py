@@ -219,6 +219,19 @@ def _qkv(p: Attention, x: torch.Tensor, kv_src: torch.Tensor, num_heads: int,
     return q, k, v
 
 
+def self_qkv(p: Attention, x: torch.Tensor, *, num_heads: int,
+             num_kv_heads: int, head_dim: int, rope: Optional[tuple] = None,
+             eps: float = 1e-6):
+    """A self-attention's (q, k, v), each (B, L, H, D): projections,
+    QK-norm and RoPE, the inputs of its attention core."""
+    q, k, v = _qkv(p, x, x, num_heads, num_kv_heads, head_dim, eps)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
 def _sdpa(q, k, v, mask, *, scale: Optional[float] = None,
           return_weights: bool = False):
     """Grouped-query scaled dot-product attention, fp32 logits and softmax.
@@ -250,11 +263,18 @@ def attention_kv(p: Attention, x: torch.Tensor, k: torch.Tensor,
     """Attention over precomputed K/V (B, Lk, Hkv, D): the decoder's
     cross-attention with per-trajectory condition K/V."""
     B, Lq, _ = x.shape
-    x = enter_region(x, p.o_proj)
-    q = linear(p.q_proj, x).reshape(B, Lq, num_heads, head_dim)
-    q = rms_norm(p.q_norm, q, eps)
+    q = cross_q(p, x, num_heads=num_heads, head_dim=head_dim, eps=eps)
     out = _sdpa(q, k, v, mask)
     return linear(p.o_proj, out.reshape(B, Lq, num_heads * head_dim))
+
+
+def cross_q(p: Attention, x: torch.Tensor, *, num_heads: int, head_dim: int,
+            eps: float = 1e-6) -> torch.Tensor:
+    """A cross-attention's query (B, Lq, Hq, D): projection and QK-norm."""
+    B, Lq, _ = x.shape
+    x = enter_region(x, p.o_proj)
+    q = linear(p.q_proj, x).reshape(B, Lq, num_heads, head_dim)
+    return rms_norm(p.q_norm, q, eps)
 
 
 def cross_kv(p: Attention, enc: torch.Tensor, *, num_kv_heads: int,
@@ -278,13 +298,12 @@ def attention(p: Attention, x: torch.Tensor, *, num_heads: int,
     self-attention path, GQA. mask: bool (B|1, 1, Lq, Lk), True = attend.
     With `return_weights`, (out, probabilities (B, Hq, Lq, Lk) fp32): the
     LRC alignment path."""
-    is_cross = kv_src is not None
-    src = kv_src if is_cross else x
-    q, k, v = _qkv(p, x, src, num_heads, num_kv_heads, head_dim, eps)
-    if not is_cross and rope is not None:
-        cos, sin = rope
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    if kv_src is None:
+        q, k, v = self_qkv(p, x, num_heads=num_heads,
+                           num_kv_heads=num_kv_heads, head_dim=head_dim,
+                           rope=rope, eps=eps)
+    else:
+        q, k, v = _qkv(p, x, kv_src, num_heads, num_kv_heads, head_dim, eps)
     out = _sdpa(q, k, v, mask, return_weights=return_weights)
     w = None
     if return_weights:
@@ -303,11 +322,8 @@ def attention_flash(p: Attention, x: torch.Tensor, *, num_heads: int,
     Same projections, QK-norm and RoPE as `attention`."""
     from acestep_torch.ops.flash_attention import flash_attention
 
-    q, k, v = _qkv(p, x, x, num_heads, num_kv_heads, head_dim, eps)
-    if rope is not None:
-        cos, sin = rope
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    q, k, v = self_qkv(p, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
+                       head_dim=head_dim, rope=rope, eps=eps)
     out = flash_attention(q, k, v, window=window)
     B, Lq = x.shape[:2]
     return linear(p.o_proj, out.reshape(B, Lq, num_heads * head_dim))

@@ -47,8 +47,8 @@ _current: "contextvars.ContextVar[Optional[Span]]" = contextvars.ContextVar(
 
 # always-on counters, exported by /metrics as acestep_<name>_total
 counters: Dict[str, int] = dict.fromkeys(
-    ("renders", "songs", "dit_steps", "vae_plan_retries",
-     "serve_group_fallbacks"), 0)
+    ("renders", "songs", "dit_steps", "dit_graph_captures",
+     "dit_graph_replays", "vae_plan_retries", "serve_group_fallbacks"), 0)
 # seconds by the handler's top-level render stage (spans opened with
 # stage=True), exported as acestep_stage_seconds_total{stage=...}
 stage_seconds: Dict[str, float] = {}

@@ -420,6 +420,167 @@ def test_graph_decode_equals_eager_greedy(cuda_device):
     assert plans[0]["audio_codes"].count("<|audio_code_") == 50
 
 
+# ------------------------------------------------------------------
+# The DiT decoder step as CUDA graphs (models/dit_graphs.py)
+# ------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def turbo_dit():
+    """The turbo DiT at its published widths, seeded, bf16, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the graphs replay only on the card")
+    from acestep_torch.config import DiTConfig
+    from acestep_torch.models.dit import init_dit_params
+
+    dev = torch.device("cuda")
+    cfg = DiTConfig.turbo()
+    model = init_dit_params(cfg, torch.Generator(dev).manual_seed(20),
+                            dtype=torch.bfloat16)
+    yield cfg, model
+    del model
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("rows,frames", [(4, 750), (1, 6000)])
+def test_dit_graph_replay_equals_eager(turbo_dit, monkeypatch, rows, frames):
+    """The turbo step at the REST cell's shape (4 fused 30 s songs) and the
+    long cell's (one 240 s song): a capture, then replays, each equal bit
+    for bit to the eager step on the same inputs, and still equal when
+    the later steps have run; K1 launches 24 times a step, replayed or
+    not; what the graphs hold after the steps (their arena, RoPE tables
+    and the capturing stream's cuBLAS workspace) stays under 0.1 GiB."""
+    from acestep_torch.models import dit_graphs
+    from acestep_torch.models.dit import decoder_cross_kv, dit_decoder
+    from acestep_torch.utils import trace
+
+    cfg, model = turbo_dit
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(rows * 7 + frames)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    names = ("dit_graph_captures", "dit_graph_replays")
+    with torch.no_grad():
+        ctx = randn(rows, frames, 128)
+        kv = decoder_cross_kv(model, cfg, randn(rows, 160, cfg.hidden_size))
+        dit_graphs._graphs.pop(model.decoder, None)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        counts = [trace.counters[n] for n in names]
+        results = []
+        for i, t in enumerate((1.0, 0.75, 0.3)):
+            xt = randn(rows, frames, 64)
+            tv = torch.full((rows,), t, device=dev, dtype=torch.bfloat16)
+            with monkeypatch.context() as eager:
+                eager.setattr(dit_graphs, "engages", lambda *a: False)
+                want = dit_decoder(model, cfg, xt, tv, tv, ctx,
+                                   cross_kv_cache=kv)
+            before = fa.launches
+            got = dit_decoder(model, cfg, xt, tv, tv, ctx, cross_kv_cache=kv)
+            assert fa.launches - before == cfg.num_hidden_layers
+            err = (got.float() - want.float()).abs().max().item()
+            assert torch.equal(got, want), (i, err)
+            results.append((got, want))
+        assert all(torch.equal(got, want) for got, want in results)
+        del xt, tv, want, got, results
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - held
+    assert [trace.counters[n] - c for n, c in zip(names, counts)] == [1, 2]
+    assert held < 0.1 * 2 ** 30, held
+
+
+def test_dit_graph_steps_on_two_streams_keep_their_order(turbo_dit):
+    """Two replayed steps of one key on two streams, both held back on
+    the card and the second let go while the first runs: the second
+    waits for the first to end before it writes the shared buffers, so
+    each result is the one its inputs give on a single stream."""
+    from acestep_torch.models.dit import decoder_cross_kv, dit_decoder
+
+    cfg, model = turbo_dit
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(31)
+    rows, frames = 4, 1500      # ~50 ms a step on the card
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    with torch.no_grad():
+        ctx = randn(rows, frames, 128)
+        kv = decoder_cross_kv(model, cfg, randn(rows, 160, cfg.hidden_size))
+        xs = [randn(rows, frames, 64) for _ in range(3)]
+        tv = torch.full((rows,), 0.6, device=dev, dtype=torch.bfloat16)
+        want = [dit_decoder(model, cfg, x, tv, tv, ctx, cross_kv_cache=kv)
+                for x in xs]       # the first captures, the others replay
+        a, b = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+        torch.cuda.synchronize()
+        # each stream spins ~50 ms from when its step is enqueued: the
+        # second is enqueued ~10 ms (the first's host time) after the
+        # first, so it would start ~10 ms into the first's ~50 ms
+        with torch.cuda.stream(a):
+            torch.cuda._sleep(100_000_000)
+            got_a = dit_decoder(model, cfg, xs[1], tv, tv, ctx,
+                                cross_kv_cache=kv)
+        with torch.cuda.stream(b):
+            torch.cuda._sleep(100_000_000)
+            got_b = dit_decoder(model, cfg, xs[2], tv, tv, ctx,
+                                cross_kv_cache=kv)
+        torch.cuda.synchronize()
+    assert torch.equal(got_a, want[1]) and torch.equal(got_b, want[2])
+
+
+@pytest.mark.parametrize("guided", [False, True])
+def test_dit_graph_trajectories_equal_eager(cuda_device, monkeypatch,
+                                            guided):
+    """Whole trajectories at a narrow width (head_dim 128, the kernel's):
+    turbo with a cover switch at 3 rows and T = 201, not a multiple of the
+    patch; base under CFG (6 rows, APG between the steps) with both
+    conditions switching sides. Twice as graphs, then eagerly: equal."""
+    from acestep_torch.config import DiTConfig
+    from acestep_torch.models import dit_graphs, sampler
+    from acestep_torch.models.dit import init_dit_params
+
+    cfg = DiTConfig.tiny(head_dim=128, fsq_dim=64,
+                         model_version="base" if guided else "turbo")
+    dev = cuda_device
+    model = init_dit_params(cfg, torch.Generator(dev).manual_seed(4),
+                            dtype=torch.bfloat16)
+    rows, frames = 3, 201
+
+    def cond(seed, lk):
+        g = torch.Generator(dev).manual_seed(seed)
+        enc = torch.randn((rows, lk, cfg.hidden_size), generator=g,
+                          device=dev).to(torch.bfloat16)
+        ctx = torch.randn((rows, frames, 128), generator=g,
+                          device=dev).to(torch.bfloat16)
+        return sampler.ConditionSet.build(model, cfg, enc, ctx)
+
+    x = torch.randn((rows, frames, 64), generator=torch.Generator(
+        dev).manual_seed(9), device=dev).to(torch.bfloat16)
+
+    def render():
+        with torch.no_grad():
+            if not guided:
+                return sampler.sample_turbo(
+                    model, cfg, x_init=x,
+                    schedule=sampler.build_turbo_schedule(3.0),
+                    cond=cond(1, 40), cond_non_cover=cond(2, 30),
+                    cover_steps=3)
+            return sampler.sample_guided(
+                model, cfg, x_init=x,
+                schedule=sampler.build_continuous_schedule(8, 3.0),
+                cond=cond(1, 40), null_cond=cond(3, 40),
+                cond_non_cover=cond(2, 30), null_cond_non_cover=cond(4, 30),
+                cover_steps=3, guidance_scale=5.0)
+
+    got, again = render(), render()
+    assert len(dit_graphs.graphs_of(model).steps) == 1
+    monkeypatch.setattr(dit_graphs, "engages", lambda *a: False)
+    want = render()
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
 def test_checkpoint_on_card_equals_cpu(cuda_device, tmp_path):
     """An upstream-named checkpoint (written from a seeded DiT / VAE) loads
     to the card in bf16 exactly as it loads to the CPU, cast."""

@@ -218,8 +218,9 @@ def _multipart(fields, files):
 # the port's program counters (utils/trace.py), which the JAX server
 # does not export
 _PORT_COUNTERS = re.compile(
-    r"acestep_(renders|songs|dit_steps|vae_plan_retries|"
-    r"serve_group_fallbacks|coalesced_jobs|stage_seconds)_total")
+    r"acestep_(renders|songs|dit_steps|dit_graph_captures|"
+    r"dit_graph_replays|vae_plan_retries|serve_group_fallbacks|"
+    r"coalesced_jobs|stage_seconds)_total")
 
 
 def _metrics_lines(raw):

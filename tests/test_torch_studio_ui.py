@@ -97,6 +97,11 @@ def live(tmp_path_factory):
     state.shutdown()
     server.shutdown()
     server.server_close()
+    # a job a test sent and did not wait for is still rendering: let it
+    # end here, or it runs on into the next file's tests in this process
+    for worker in state._workers:
+        worker.join(timeout=120)
+        assert not worker.is_alive(), f"{worker.name} still rendering"
 
 
 def _generate(port, body, timeout=120):

@@ -18,8 +18,10 @@ import torch
 import acestep_torch.pipeline.handler as thandler
 from acestep_torch import inference
 from acestep_torch.config import DiTConfig, VAEConfig
+from acestep_torch.models import dit_graphs
 from acestep_torch.serving import server as tserver
 from acestep_torch.utils import trace
+from torch_graph_helpers import replay_eagerly
 
 # the handler's time_costs keys, as a render without a planner gives them
 HANDLER_COSTS = {"prepare_time_cost", "text_encode_time_cost",
@@ -368,6 +370,32 @@ def test_metrics_export_the_counters(server, handler, tmp_path, monkeypatch):
         before["acestep_dit_steps_total"] + STEPS
     for stage in STAGES:
         assert after[f'acestep_stage_seconds_total{{stage="{stage}"}}'] > 0
+
+
+def test_graph_counters_and_capture_span(server, handler, tmp_path,
+                                         monkeypatch, tracing):
+    """With the decoder's graph path engaged (each graph replayed by
+    running its segment again: there is no card here), a render of a shape
+    not seen captures in its first `dit.step`, under a `dit.capture` span,
+    and replays the other steps; /metrics exports both counters."""
+    replay_eagerly(monkeypatch)
+    dit_graphs._graphs.pop(handler.model.decoder, None)
+    before = _metrics(server)
+    _render(handler, tmp_path, batch=3)
+    after = _metrics(server)
+    spans = trace.drain()
+    capture = _one(spans, "dit.capture")
+    step = next(s for s in spans if s["id"] == capture["parent"])
+    assert step["name"] == "dit.step" and step["attrs"] == {"step": 0}
+    # the render's 50 frames padded to the handler's bucket of 8
+    assert capture["attrs"] == {"rows": 3, "frames": 56}
+    assert step["start"] <= capture["start"] <= capture["end"] <= step["end"]
+    grew = {name: after[f"acestep_{name}_total"]
+            - before[f"acestep_{name}_total"]
+            for name in ("dit_steps", "dit_graph_captures",
+                         "dit_graph_replays")}
+    assert grew == {"dit_steps": STEPS, "dit_graph_captures": 1,
+                    "dit_graph_replays": STEPS - 1}
 
 
 def test_failed_group_counts_a_fallback(server, monkeypatch):
