@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""The control of a cell's correctness check: the plain reference put in
-the program's place with every matrix and conv weight rounded to float8
-e4m3 (one scale an output channel), the precision step below the bf16 the
-configuration serves in. It produces each sampled request's latents and
-song itself and is judged by the same numbers a run's `correct` compares;
-the limits sit between what sound runs read and what this reads.
+"""The control of a cell's correctness check, as the system module its
+configuration names makes it (`control` in `perfbench/systems/<system>.py`;
+for `dit_vae`: the plain reference put in the program's place with every
+matrix and conv weight rounded to float8 e4m3, one scale an output
+channel, the precision step below the bf16 the configuration serves in).
+It produces each sampled request's answer itself and is judged by the
+same numbers a run's `correct` compares; the limits sit between what
+sound runs read and what this reads.
 
     python3 perfbench/control.py --workload <name> --seeds <n> [<n> ...]
         [--seconds <run_seconds>]
 
-Prints one JSON line a seed: {"seed", "latent_err", "audio_err",
+Prints one JSON line a seed: {"seed", each number the judge compares,
 "sampled"}. Needs a CUDA card, like a run.
 """
 
@@ -24,20 +26,9 @@ sys.path[:0] = [HERE, ROOT]
 
 
 def control_numbers(spec, seed: int, seconds: float, device) -> dict:
-    """The control's numbers on the requests a run of `seed` would judge."""
-    from harness import correct, drivers, traffic
-
-    mix = spec.mix
-    reqs = traffic.requests(mix, seed, seconds, count=12)
-    records = [drivers._record(r, ok=True) for r in reqs]
-    control = correct.Reference(spec.conf, seed, device, fp8=True)
-
-    def produced(rec):
-        lat = control.latents(rec)
-        return control.song(lat, rec["duration_s"]), lat, None
-
-    return correct.judge(spec.conf, seed, records, {}, device,
-                         k=mix["correct_sample"], produced=produced)
+    """The control's numbers on the requests a run of `seed` would judge,
+    as the cell's system makes and judges them (its `control`)."""
+    return spec.system.control(spec.conf, spec.mix, seed, seconds, device)
 
 
 def main(argv=None) -> int:
@@ -58,9 +49,7 @@ def main(argv=None) -> int:
     seconds = args.seconds or spec.bench["run_seconds"]
     for seed in args.seeds:
         out = control_numbers(spec, seed, seconds, torch.device("cuda:0"))
-        print(json.dumps({"seed": seed, **{k: out[k] for k in
-                                           ("latent_err", "audio_err",
-                                            "sampled")}}), flush=True)
+        print(json.dumps({"seed": seed, **out}), flush=True)
     return 0
 
 

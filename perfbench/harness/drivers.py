@@ -11,9 +11,11 @@
   sending its next request when the last one came back. Each request is
   timed from its send.
 
-Both warm every shape the mix uses before the window, keep the
-program's songs only until their sizes are read, and return one record
-per request with the program's own spans and counters beside it.
+Each takes the handlers a system built (`program.Handlers`: the DiT
+handler and the planner or None), keeps the program's songs only until
+their sizes are read, and returns one record per request with the
+program's own spans and counters beside it. The system warms every shape
+the mix uses before the window.
 """
 
 from __future__ import annotations
@@ -26,8 +28,6 @@ import threading
 import time
 import urllib.request
 from typing import Dict, List
-
-from harness import traffic
 
 LOADGEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "loadgen.py")
 
@@ -43,40 +43,15 @@ def _record(req: dict, **kw) -> dict:
     return rec
 
 
-def _handler_kwargs(req: dict, out_dir: str) -> dict:
-    """`AceStepHandler.generate_music`'s arguments for a warm-up render of
-    `req`'s shapes."""
-    meta = {"bpm": "N/A", "keyscale": "N/A", "timesignature": "N/A",
-            "duration": f"{int(req['duration_s'])} seconds",
-            "language": req.get("vocal_language", "en")}
-    return dict(metas=meta, vocal_languages=req.get("vocal_language", "en"),
-                audio_duration=float(req["duration_s"]),
-                infer_steps=int(req["inference_steps"]),
-                shift=float(req["shift"]), save_dir=out_dir,
-                audio_format=req["audio_format"])
-
-
-def warm(handler, mix: dict, seed: int, out_dir: str) -> None:
-    """One render at each batch size the mix can form, with its own
-    prompts (same length buckets as the window's) and its save format."""
-    reqs = traffic.requests(dict(mix, loop="closed"), seed ^ 0x5A5A5A5A, 0,
-                            count=max(mix["warm_batches"]))
-    for b in mix["warm_batches"]:
-        rows = reqs[:b]
-        handler.generate_music([r["caption"] for r in rows],
-                               [r["lyrics"] for r in rows], batch_size=b,
-                               seeds=[r["seed"] for r in rows],
-                               **_handler_kwargs(rows[0], out_dir))
-
-
 class Rest:
     """The REST server and its clients."""
 
-    def __init__(self, handler, mix: dict, out_dir: str):
+    def __init__(self, handlers, mix: dict, out_dir: str):
         from acestep_torch.serving.server import AppState, create_server
 
         self.mix = mix
-        self.state = AppState({"turbo": handler}, None, output_dir=out_dir)
+        self.state = AppState({"turbo": handlers.dit}, handlers.llm,
+                              output_dir=out_dir)
         self.httpd = create_server(self.state, "127.0.0.1", 0)
         self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
         self._serve = threading.Thread(target=self.httpd.serve_forever,
@@ -174,8 +149,8 @@ class Rest:
 class Facade:
     """`inference.generate_music` in a closed loop of one client."""
 
-    def __init__(self, handler, mix: dict, out_dir: str):
-        self.handler, self.out_dir = handler, out_dir
+    def __init__(self, handlers, mix: dict, out_dir: str):
+        self.handlers, self.out_dir = handlers, out_dir
 
     def params(self, req: dict):
         from acestep_torch.inference import GenerationConfig, GenerationParams
@@ -194,7 +169,8 @@ class Facade:
     def one(self, req: dict):
         from acestep_torch.inference import generate_music
 
-        return generate_music(self.handler, None, *self.params(req))
+        return generate_music(self.handlers.dit, self.handlers.llm,
+                              *self.params(req))
 
     def window(self, reqs: List[dict], w0: float, seconds: float,
                late_s: float) -> List[dict]:

@@ -6,10 +6,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import statistics
+from types import ModuleType
 from typing import Dict, List, Optional
-
-from harness import counts
-from reference import text as ref_text
 
 
 @dataclasses.dataclass
@@ -22,10 +20,25 @@ class Run:
     card: str
     coalesced: Optional[int] = None     # jobs the server fused, in the window
     trace: Optional[dict] = None        # trace.Tracer.summary()
+    system: Optional[ModuleType] = None     # the configuration's system
+    # traced runs: the port's own spans over the window (as its tracer
+    # drains them), how many of them its ring dropped, and the change in
+    # each of its counters over the window (program.PortTrace)
+    program_spans: Optional[List[dict]] = None
+    spans_dropped: int = 0
+    counters: Optional[Dict[str, int]] = None
 
     @property
     def ok(self) -> List[dict]:
         return [r for r in self.records if r["ok"]]
+
+
+def device_trace(run: Run) -> Optional[dict]:
+    """The traced stretch's summary, where its device events can be read:
+    None in an untraced run and in a stretch that lost the kernel records
+    of more than `trace.Tracer.MAX_UNMATCHED` of its launches."""
+    t = run.trace
+    return t if t and t.get("complete") else None
 
 
 def percentile(values: List[float], q: float) -> Optional[float]:
@@ -53,18 +66,9 @@ def per_song(run: Run, key: str) -> Optional[float]:
 
 
 def song_flops(run: Run, rec: dict) -> float:
-    """The analytic FLOPs of one completed song (counts.request_flops at
-    the song's own prompt buckets and frames)."""
-    dit = run.conf["dit"]
-    text = ref_text.caption_prompt(rec["caption"], rec["duration_s"])
-    lyric = ref_text.lyric_prompt(rec["lyrics"], rec["language"])
-    return counts.request_flops(
-        dit, run.conf["vae"], frames=int(rec["duration_s"] * 25),
-        steps=rec["steps"],
-        text_len=ref_text.padded_len(len(text.encode()), ref_text.TEXT_MAX_LEN),
-        lyric_len=ref_text.padded_len(len(lyric.encode()),
-                                      ref_text.LYRIC_MAX_LEN),
-        refer_frames=dit["timbre_fix_frame"])
+    """The analytic FLOPs of one completed request, as its system counts
+    them."""
+    return run.system.request_flops(run.conf, rec)
 
 
 def service_s(run: Run) -> float:

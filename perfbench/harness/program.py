@@ -1,6 +1,7 @@
-"""The system under test: the port's handler built from a configuration
-file and seeded weights, and the benchmark's own spans and captures
-around the calls into its layers.
+"""What every system under test shares: the handlers a system module
+(`perfbench/systems/`) builds, the loading of seeded weights into a module
+built on the meta device, and the benchmark's own spans and captures
+around the calls into the handler's layers.
 
 Everything here reaches the program through its public modules
 (`acestep_torch.*`); what it records lives in a `Recorder` the run owns.
@@ -10,15 +11,21 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List
+from typing import Any, Dict, List, NamedTuple
 
 import torch
 
-from harness import weights
-from reference import dit as ref_dit
-from reference import vae as ref_vae
 
-def _tuples(d: dict) -> dict:
+class Handlers(NamedTuple):
+    """The program a system builds: `dit`, the `AceStepHandler` every
+    render goes through, and `llm`, its `LLMHandler` or None."""
+    dit: Any
+    llm: Any = None
+
+
+def tuples(d: dict) -> dict:
+    """A configuration group with its lists as tuples, as the port's
+    config dataclasses take them."""
     return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
 
 
@@ -35,28 +42,6 @@ def load_module(module, tensors: Dict[str, torch.Tensor]):
                          f"missing {missing}, extra {extra}, shape {bad}")
     module.load_state_dict(tensors, strict=True, assign=True)
     return module.requires_grad_(False)
-
-
-def build_handler(conf: dict, seed: int, device, dtype=None):
-    """An initialised `AceStepHandler` serving the configuration `conf`
-    with the weights of run `seed`, drawn on `device`."""
-    from acestep_torch.config import DiTConfig, VAEConfig
-    from acestep_torch.models.dit import AceStepDiT
-    from acestep_torch.models.vae import OobleckVAE
-    from acestep_torch.pipeline.handler import AceStepHandler
-
-    dtype = dtype or getattr(torch, conf["dtype"])
-    cfg = DiTConfig(**_tuples(conf["dit"]))
-    vcfg = VAEConfig(**_tuples(conf["vae"]))
-    dit = load_module(AceStepDiT(cfg, device="meta", dtype=dtype),
-                      weights.draw(ref_dit.param_shapes(conf["dit"]), seed,
-                                   "dit", device, dtype))
-    vae = load_module(OobleckVAE(vcfg, device="meta", dtype=dtype),
-                      weights.draw(ref_vae.param_shapes(conf["vae"]), seed,
-                                   "vae", device, dtype))
-    handler = AceStepHandler(cfg, vcfg, dtype=dtype, device=device)
-    handler.initialize_service(params=dit, vae_params=vae)
-    return handler
 
 
 class Recorder:
@@ -170,6 +155,46 @@ def kernel_launches() -> Dict[str, int]:
     from acestep_torch.ops import snake_conv as sc
 
     return {"k1": fa.launches, "k4": sc.launches}
+
+
+class PortTrace:
+    """The port's own span tracer and counters (`acestep_torch.utils.
+    trace`) over a traced run's window: `open()` empties the ring, notes
+    the counters and turns the tracer on; `close()` turns it off and
+    returns the spans the ring holds, how many of them it dropped (a full
+    ring drops its oldest), and each counter's change. Without the
+    tracer in the program there is nothing to read."""
+
+    def __init__(self):
+        try:
+            from acestep_torch.utils import trace
+        except ImportError:
+            trace = None
+        self.trace = trace
+        self._counters: Dict[str, int] = {}
+        self._first_id = 0
+
+    def open(self) -> None:
+        t = self.trace
+        if t is None:
+            return
+        t.drain()
+        self._counters = dict(t.counters)
+        self._first_id = next(t._ids)    # span ids count up as spans open
+        t.enable()
+
+    def close(self) -> tuple:
+        """(spans, dropped, counters' change) since `open()`."""
+        t = self.trace
+        if t is None:
+            return None, 0, None
+        t.disable()
+        opened = next(t._ids) - self._first_id - 1
+        spans = t.drain()
+        dropped = opened - len(spans) if len(spans) >= t.RING_SIZE else 0
+        counters = {k: v - self._counters.get(k, 0)
+                    for k, v in t.counters.items()}
+        return spans, max(0, dropped), counters
 
 
 def synchronize(device) -> None:

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from harness import counts
+from harness import counts, measure
 
 
 def _ops_bytes(kernel: str, shape: tuple) -> tuple:
@@ -17,10 +17,10 @@ def _ops_bytes(kernel: str, shape: tuple) -> tuple:
 
 def share(run, kernel: str) -> Optional[float]:
     """Summed bound time over summed device time of the launches paired
-    with their kernels (%); None when the sub-window holds none, the calls
-    logged disagree with the port's own launch counter, or the card has
-    no peak."""
-    t = run.trace
+    with their kernels (%); None when the sub-window holds none or lost
+    its kernel records, the calls logged disagree with the port's own
+    launch counter, or the card has no peak."""
+    t = measure.device_trace(run)
     if not t or counts.peak(run.card) is None:
         return None
     k = t[kernel]

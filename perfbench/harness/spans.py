@@ -3,11 +3,13 @@ gaps put down to them.
 
 The port records its spans itself (`acestep_torch.utils.trace`) on the
 same `time.monotonic()` clock that `harness/trace.py` maps the device
-trace onto. A run that collects them holds them as `program_spans` (the
-tracer's drained records: name, start, end, id, parent, requests,
-thread, attrs), and the traced stretch as `trace["stretch"]` (its
-start and end) with its idle intervals as `trace["gaps"]`; a reader
-finds nothing to read in a run without them.
+trace onto. A traced run turns its tracer on over the window and holds
+the spans as `program_spans` (the tracer's drained records: name,
+start, end, id, parent, requests, thread, attrs), and the traced
+stretch as `trace["stretch"]` (its start and end) with its idle
+intervals as `trace["gaps"]`; a reader finds nothing to read in a run
+without them, in one whose ring dropped spans, or (for the idle) in a
+stretch that lost its kernel records.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 import bisect
 import statistics
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from harness import measure
 
 # the handler's host stages around the device work, and the facade's
 # per-song result entry
@@ -25,12 +29,18 @@ Interval = Tuple[float, float]
 
 
 def program_spans(run) -> Optional[List[dict]]:
-    return getattr(run, "program_spans", None) or None
+    """The run's program spans; None without them, and where the port's
+    ring dropped any (a reading over part of the window)."""
+    if run.spans_dropped:
+        return None
+    return run.program_spans or None
 
 
 def stretch_and_gaps(run) -> Optional[Tuple[Interval, List[Interval]]]:
-    t = getattr(run, "trace", None)
-    if not t or t.get("gaps") is None or t.get("stretch") is None:
+    """The traced stretch and its idle intervals, where the device trace
+    can be read (`measure.device_trace`)."""
+    t = measure.device_trace(run)
+    if t is None:
         return None
     return tuple(t["stretch"]), [tuple(g) for g in t["gaps"]]
 
@@ -140,23 +150,6 @@ def diffusion_idle(stretch: Interval, gaps: Sequence[Interval],
     idle = intersect(merge(gaps), diff)
     http = named(spans, lambda n: n == "serve.http")
     return total(idle), total(diff), total(intersect(idle, http))
-
-
-def gaps_of(tracer, summary) -> List[Interval]:
-    """The idle intervals of a `harness/trace.Tracer`'s stretch, as its own
-    summary finds them: `summary` is `harness/trace.Tracer.summary` bound
-    to `tracer` (a subclass's `super().summary`). The summary names each
-    gap after `open_span` at the gap's midpoint; named by that midpoint
-    instead, the idle seconds under each name give its gap back."""
-    tracer.open_span = repr
-    try:
-        got = summary()
-    finally:
-        del tracer.open_span
-    if got is None:
-        return []
-    return sorted((float(m) - d / 2, float(m) + d / 2)
-                  for m, d in got["idle_by_span"].items())
 
 
 def launched_inside(events, names: Sequence[str],

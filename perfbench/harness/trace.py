@@ -32,7 +32,9 @@ class Tracer:
     lacks the device events of more than 1% of the launches it recorded
     (CUPTI drops kernel records now and then, once all of them) is traced
     again over the next stretch of the same length, while one fits in the
-    window's `seconds`."""
+    window's `seconds`; a last stretch that still lacks them is marked
+    not `complete` in the summary, and nothing is read from its device
+    events."""
 
     MAX_UNMATCHED = 0.01
 
@@ -84,15 +86,17 @@ class Tracer:
         before = program.set_kernel_logging(self.rec, True)
         prof = self._profile()
         prof.start()
-        # a kernel launched at a known host time: its launch, as the
-        # profiler stamps it, maps the profiler's clock onto ours
-        mark = time.monotonic()
-        torch.cuda._sleep(1)
-        self.t_start = mark
-        time.sleep(span)
-        program.synchronize(self.device)
-        self.t_stop = time.monotonic()
-        prof.stop()
+        try:
+            # a kernel launched at a known host time: its launch, as the
+            # profiler stamps it, maps the profiler's clock onto ours
+            mark = time.monotonic()
+            torch.cuda._sleep(1)
+            self.t_start = mark
+            time.sleep(span)
+            program.synchronize(self.device)
+            self.t_stop = time.monotonic()
+        finally:
+            prof.stop()
         after = program.set_kernel_logging(self.rec, False)
         self.launches = {k: after[k] - before[k] for k in after}
         self._collect(prof, mark)
@@ -129,9 +133,13 @@ class Tracer:
     # -------------------------------------------------------- reduction
 
     def summary(self) -> Optional[dict]:
-        """busy_s, window_s, device time by kernel name, idle seconds by
-        the host span open during each gap, and the K1 / K4 calls paired
-        with their kernels; None when the trace holds no device operation."""
+        """busy_s, window_s, device time by kernel name, the stretch
+        (start, end) and its idle intervals (`gaps`), idle seconds by the
+        host span open during each gap, the K1 / K4 calls paired with their
+        kernels, and whether the stretch kept the kernels of all but
+        MAX_UNMATCHED of its launches (`complete`; `lost`: its launches
+        without a kernel, of all its launches); None when the trace holds
+        no device operation."""
         if self.error or not self.events or self.t_start is None:
             return None
         lo, hi = self.t_start, self.t_stop
@@ -159,7 +167,11 @@ class Tracer:
         for s, e in gaps:
             label = self.open_span((s + e) / 2)
             idle[label] = idle.get(label, 0.0) + (e - s)
+        n, lost = self.unmatched[-1] if self.unmatched else (0, 0)
         return {"busy_s": busy, "window_s": hi - lo, "by_name": by_name,
+                "stretch": (lo, hi), "gaps": gaps,
+                "complete": lost <= self.MAX_UNMATCHED * n,
+                "lost": (lost, n),
                 "idle_by_span": idle, "launches": self.launches,
                 "k1": self.matched(K1_NAMES, self.rec.k1_calls, lambda s: 1),
                 "k4": self.matched(K4_NAMES, self.rec.k4_calls,

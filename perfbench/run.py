@@ -4,17 +4,21 @@
     python3 perfbench/run.py --workload <name> --seed <n> --seconds <s> \
         --trace <0|1>
 
-from the root of a checkout. Sets up the cell (seeded weights drawn on the
-card, the port's handler, the server or facade its traffic mix names, a
-warm-up of every shape the mix uses), opens the window, drives the mix for
-`--seconds`, waits up to the mix's `late_s` for answers still due, then
-judges a seeded sample of them against the plain float32 reference. The
-last line of stdout is the result: `correct`, `attempted`, `failed`,
-`metrics` (the cell's end-to-end metrics with `--trace 0`, its per-layer
-ones with `--trace 1`), `device` (with the traced sub-window's `busy_s`
-and `window_s` under `--trace 1`), `breakdown` when traced, and last
-`checks`, each number `correct` compared beside its limit; the same
-numbers end stderr.
+from the root of a checkout. Sets up the cell through the system module
+its configuration names (`perfbench/systems/<system>.py`: seeded weights
+drawn on the card, the port's handlers, a warm-up of every shape the mix
+uses) and the server or facade its traffic mix names, opens the window,
+drives the mix for `--seconds`, waits up to the mix's `late_s` for
+answers still due, then has the system judge a seeded sample of them
+against its plain reference. With `--trace 1` the port's own span tracer
+is on over the window (off with `--trace 0`): its spans and the change in
+its counters are the run's, beside a device trace of a stretch of the
+window. The last line of stdout is the result: `correct`, `attempted`,
+`failed`, `metrics` (the cell's end-to-end metrics with `--trace 0`, its
+per-layer ones with `--trace 1`), `device` (with the traced sub-window's
+`busy_s` and `window_s` under `--trace 1`), `breakdown` when traced and
+the stretch kept its kernel records, and last `checks`, each number
+`correct` compared beside its limit; the same numbers end stderr.
 
 Exits 2 without a result when no CUDA card is available or fewer than the
 cell asks for, 3 when a JAX module or the JAX package was loaded, 4 when
@@ -88,30 +92,32 @@ def sub_window(mix: dict, seconds: float) -> tuple:
 def execute(spec, seed: int, seconds: float, trace: bool, device,
             t_process: float = T_PROCESS, hook=None):
     """Set up, drive and judge one run -> (measure.Run, metrics, checks).
-    `hook(handler)` runs after set-up, before the window (the tests plant
+    `hook(handlers)` runs after set-up, before the window (the tests plant
     faults through it)."""
     import torch
 
-    from harness import correct, drivers, measure, program, traffic
+    from harness import drivers, measure, program, traffic
     from harness.spec import read_all
     from harness.trace import Tracer
 
-    mix = spec.mix
+    mix, system = spec.mix, spec.system
     rec = program.Recorder()
+    port = program.PortTrace() if trace else None
     out_dir = tempfile.mkdtemp(prefix="perfbench-songs-")
     tracer = None
     try:
-        handler = program.build_handler(spec.conf, seed, device)
+        handlers = system.build(spec.conf, seed, device)
         rec.install(kernels=trace)
-        drivers.warm(handler, mix, seed, out_dir)
-        driver = drivers.DRIVERS[mix["driver"]](handler, mix, out_dir)
+        system.install(rec, handlers)
+        system.warm(handlers, mix, seed, out_dir)
+        driver = drivers.DRIVERS[mix["driver"]](handlers, mix, out_dir)
         reqs = traffic.requests(mix, seed, seconds,
                                 count=mix.get("closed_count", 0))
         if hasattr(driver, "warm_http"):
             driver.warm_http(traffic.requests(dict(mix, loop="closed"),
                                               seed ^ 0x77, 0, count=1)[0])
         if hook is not None:
-            hook(handler)
+            hook(handlers)
         if trace:
             tracer = Tracer(rec, device, *sub_window(mix, seconds), seconds)
             tracer.prepare()
@@ -119,6 +125,8 @@ def execute(spec, seed: int, seconds: float, trace: bool, device,
         rec.spans.clear()
         rec.songs.clear()
         rec.renders.clear()
+        if port is not None:
+            port.open()
         w0 = time.monotonic() + 0.2
         setup_s = w0 - t_process
         # the window runs on a thread of its own: the main thread keeps
@@ -137,6 +145,8 @@ def execute(spec, seed: int, seconds: float, trace: bool, device,
         if tracer is not None:
             tracer.run(w0)
         th.join()
+        program_spans, dropped, counters = (port.close() if port is not None
+                                            else (None, 0, None))
         if "error" in done:
             raise done["error"]
         records = done["records"]
@@ -151,26 +161,67 @@ def execute(spec, seed: int, seconds: float, trace: bool, device,
                                if cuda else 0),
             card=torch.cuda.get_device_name(device) if cuda else "cpu",
             coalesced=getattr(driver, "coalesced", None),
-            trace=tracer.summary() if tracer is not None else None)
+            trace=tracer.summary() if tracer is not None else None,
+            system=system, program_spans=program_spans,
+            spans_dropped=dropped, counters=counters)
         if tracer is not None:
-            t = run.trace or {}
-            print(f"perfbench: traced {tracer.t_start} -> {tracer.t_stop}: "
-                  f"events {tracer.kinds}, launches {tracer.launches}, "
-                  + ", ".join(f"{k} calls {t[k]['calls']} kernels "
-                              f"{t[k]['kernels']} paired {len(t[k]['pairs'])}"
-                              for k in ("k1", "k4") if k in t)
-                  + f", launches without a kernel {tracer.unmatched}"
-                  + f", error {tracer.error}", file=sys.stderr)
+            report_trace(run, tracer)
         songs = rec.songs
         rec.uninstall()
-        del handler, driver
+        del handlers, driver
         program.release()
-        checks = correct.judge(spec.conf, seed, records, songs, device,
-                               k=mix["correct_sample"], renders=rec.renders)
+        checks = system.judge(spec.conf, seed, records, songs, device,
+                              k=mix["correct_sample"], renders=rec.renders)
     finally:
+        if port is not None and port.trace is not None:
+            port.trace.disable()
         rec.uninstall()
         shutil.rmtree(out_dir, ignore_errors=True)
-    return run, read_all(spec.metrics(trace), run), checks
+    return run, read_all(spec.metrics(trace), run, spec.root), checks
+
+
+def report_trace(run, tracer) -> None:
+    """On stderr: what the traced stretch held, a loss of its kernel
+    records, the port's spans and counters over the window, and the
+    stretch's idle cut at the port's span boundaries, by the innermost
+    span open on the rendering thread."""
+    from harness import spans
+    from harness.trace import K1_NAMES, K4_NAMES
+
+    t = run.trace or {}
+
+    def say(text):
+        print("perfbench: " + text, file=sys.stderr)
+
+    say(f"traced {tracer.t_start} -> {tracer.t_stop}: events {tracer.kinds}, "
+        f"launches {tracer.launches}, "
+        + ", ".join(f"{k} calls {t[k]['calls']} kernels {t[k]['kernels']} "
+                    f"paired {len(t[k]['pairs'])}"
+                    for k in ("k1", "k4") if k in t)
+        + f", launches without a kernel {tracer.unmatched}"
+        + f", error {tracer.error}")
+    if t and not t["complete"]:
+        lost, n = t["lost"]
+        say(f"the traced stretch lost the kernel records of {lost} of its "
+            f"{n} launches after {len(tracer.unmatched)} takes: its device "
+            "metrics and breakdown read null")
+    got = run.program_spans or []
+    say(f"program spans {len(got)}, dropped by the ring {run.spans_dropped}, "
+        f"counters over the window {run.counters}")
+    traced = spans.stretch_and_gaps(run)
+    if not got or traced is None:
+        return
+    stretch, gaps = traced
+    split = spans.split_idle(stretch, gaps, got, spans.rendering_threads(got))
+    idle, _inside, http = spans.diffusion_idle(stretch, gaps, got)
+    for name, seconds in sorted(split.items(), key=lambda x: -x[1]):
+        say(f"idle under {name}: {seconds} s")
+    k1 = spans.launched_inside(tracer.events, K1_NAMES,
+                               spans.named(got, lambda n: n.startswith("dit.")))
+    k4 = spans.launched_inside(tracer.events, K4_NAMES,
+                               spans.named(got, lambda n: n == "vae"))
+    say(f"diffusion idle {idle} s, of it under serve.http {http} s; K1 "
+        f"launched inside dit.* {k1}%, K4 inside vae {k4}%")
 
 
 def verdict(checks: dict, limits: dict) -> tuple:
@@ -199,6 +250,7 @@ def result_line(spec, run, metrics: dict, checks: dict, trace: bool) -> dict:
     if trace:
         t = run.trace
         device["busy_s"], device["window_s"] = t["busy_s"], t["window_s"]
+    if trace and t["complete"]:
         line["breakdown"] = {
             "device_ops": sorted(([n, s] for n, s in t["by_name"].items()),
                                  key=lambda x: -x[1])[:10],

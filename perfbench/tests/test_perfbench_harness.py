@@ -12,7 +12,7 @@ import sys
 
 import pytest
 import torch
-from conftest import BENCH, PERFBENCH, REPO, tiny_spec
+from conftest import BENCH, PERFBENCH, REPO, tiny_conf, tiny_spec
 
 import run as run_py
 from harness import spec as spec_mod
@@ -100,6 +100,7 @@ def test_metrics_contract():
 def test_spec_finds_every_file_by_name(cell):
     s = spec_mod.Spec(BENCH, cell)
     assert s.conf["name"] == s.cell["config"]
+    assert all(callable(getattr(s.system, f)) for f in spec_mod.SYSTEM_API)
     assert s.mix["driver"] in ("rest", "facade")
     assert set(s.limits) >= {"latent_err", "audio_err", "missing", "saved_bad"}
     for trace in (False, True):
@@ -146,6 +147,144 @@ def test_new_cell_config_mix_and_metric_are_new_files(tmp_path):
     assert got == {"dummy_metric.serve": {"value": 42.0, "unit": "s"}}
     after = {p: open(p, "rb").read() for p in before}
     assert after == before
+
+
+# a system with a planner, written as new files into a copy of perfbench/
+TINY_PLANNER = '''"""The DiT and VAE of `dit_vae` with a seeded planner (an `LLMHandler`
+on `LMConfig.tiny()` with the `SimpleTokenizer`), judged only for songs
+missing or saved badly."""
+
+import torch
+
+from harness import correct, drivers, program, traffic
+from systems import dit_vae
+
+
+def build(conf, seed, device):
+    from acestep_torch.config import LMConfig
+    from acestep_torch.llm.handler import LLMHandler
+    from acestep_torch.llm.tokenizer import SimpleTokenizer
+
+    tok = SimpleTokenizer(num_audio_codes=conf["planner"]["audio_codes"])
+    llm = LLMHandler(dtype=getattr(torch, conf["dtype"]), device=device)
+    llm.initialize(cfg=LMConfig.tiny(vocab_size=tok.vocab_size),
+                   tokenizer=tok, seed=seed)
+    return program.Handlers(dit=dit_vae.build(conf, seed, device).dit,
+                            llm=llm)
+
+
+def install(rec, handlers):
+    pass
+
+
+def warm(handlers, mix, seed, out_dir):
+    req = traffic.requests(dict(mix, loop="closed"), seed ^ 0x5A5A5A5A, 0,
+                           count=1)[0]
+    res = drivers.Facade(handlers, mix, out_dir).one(req)
+    if not res.success:
+        raise RuntimeError(res.error)
+
+
+def judge(conf, seed, records, songs, device, k, renders):
+    return {"missing": sum(1 for r in records if not r["ok"]),
+            "saved_bad": sum(1 for r in records if r["ok"] and (
+                r["seed"] not in songs
+                or not correct.saved_ok(r["file"], songs[r["seed"]][0]))),
+            "sampled": len(correct.sample(records, seed, k, renders))}
+
+
+def request_flops(conf, rec):
+    return dit_vae.request_flops(conf, rec)
+'''
+
+PLAN_S = '''"""Median of the port's `plan` spans over the window (s)."""
+
+from harness import spans
+
+
+def read(run):
+    got = spans.program_spans(run)
+    if not got:
+        return None
+    return spans.median([s["end"] - s["start"] for s in got
+                         if s["name"] == "plan"])
+'''
+
+
+def _files(root):
+    return {p: open(p, "rb").read() for p in map(str, root.rglob("*"))
+            if os.path.isfile(p) and "__pycache__" not in p}
+
+
+@pytest.mark.parametrize("driver", ["facade", "rest"])
+def test_a_system_with_a_planner_is_new_files(tmp_path, driver):
+    """A copy of the benchmark gains a system with a planner (its module,
+    configuration, a thinking mix, limits and a reader of the port's
+    `plan` spans) by new files and entries only; a tiny traced run of the
+    mix on the CPU is set up, driven through the planner, judged correct
+    and read, and every file the copy had is left byte for byte."""
+    root = tmp_path / "perfbench"
+    shutil.copytree(PERFBENCH, root, ignore=shutil.ignore_patterns(
+        "__pycache__", "tests"))
+    before = _files(root)
+    (root / "systems" / "tiny_planner.py").write_text(TINY_PLANNER)
+    conf = dict(tiny_conf(), name="tiny-planner", system="tiny_planner",
+                planner={"audio_codes": 32})
+    (root / "configs" / "tiny-planner.json").write_text(json.dumps(conf))
+    base = {"facade": "facade-wav-240s", "rest": "rest-closed8-30s"}[driver]
+    mix = json.load(open(root / "traffic" / (base + ".json")))
+    mix["request"].update(duration_s=10, thinking=True)
+    mix.update(closed_count=5000, warm_batches=[1], late_s=30,
+               correct_sample=2)
+    if driver == "rest":
+        mix["clients"] = 2
+    (root / "traffic" / "tiny-think.json").write_text(json.dumps(mix))
+    cell = "tiny-think-" + driver
+    (root / "limits" / (cell + ".json")).write_text(json.dumps(
+        {"missing": 0, "saved_bad": 0}))
+    (root / "metrics" / "plan_s.py").write_text(PLAN_S)
+    bench = dict(B)
+    bench["configs"] = B["configs"] + [dict(
+        B["configs"][0], name="tiny-planner",
+        file="perfbench/configs/tiny-planner.json")]
+    bench["workloads"] = B["workloads"] + [dict(
+        B["workloads"][0], name=cell, config="tiny-planner",
+        traffic="tiny-think")]
+    bench["per_layer"] = B["per_layer"] + [dict(
+        B["per_layer"][0], name="plan_s.think", unit="s", workloads=[cell])]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    s = spec_mod.Spec(str(tmp_path / "BENCHMARK.json"), cell, root=str(root))
+    assert s.system.__file__ == str(root / "systems" / "tiny_planner.py")
+    run, metrics, checks = run_py.execute(s, 2**31 + 99, 3.0, True,
+                                          torch.device("cpu"))
+    assert run_py.verdict(checks, s.limits)[0] is True, checks
+    assert run.ok and all(r["ok"] for r in run.records)
+    plans = [p for p in run.program_spans if p["name"] == "plan"]
+    assert len(plans) >= len(run.ok)
+    assert all("lm_time_cost" in r["time_costs"] for r in run.ok)
+    assert list(metrics) == ["plan_s.think"]
+    assert metrics["plan_s.think"]["value"] > 0
+    after = _files(root)
+    assert {p: after.get(p) for p in before} == before
+
+
+@pytest.mark.parametrize("system", [None, "no_such_system"])
+def test_a_configuration_must_name_its_system(tmp_path, system):
+    """A configuration with no `"system"`, or naming no module under
+    `perfbench/systems/`, fails at set-up, naming what it lacks."""
+    conf = json.load(open(os.path.join(PERFBENCH, "configs",
+                                       "acestep-v15-turbo.json")))
+    del conf["system"]
+    if system is not None:
+        conf["system"] = system
+    (tmp_path / "c.json").write_text(json.dumps(conf))
+    bench = dict(B, configs=[dict(B["configs"][0], file="c.json")])
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    with pytest.raises((ValueError, FileNotFoundError)) as err:
+        spec_mod.Spec(str(tmp_path / "BENCHMARK.json"), "turbo-rest-30s")
+    assert "acestep-v15-turbo" in str(err.value)
+    assert (system or "names no system") in str(err.value)
 
 
 # ------------------------------------------------------------- result line
@@ -203,7 +342,7 @@ def test_sample_holds_a_whole_fused_render():
 # ------------------------------------------------------------------- imports
 
 def test_no_module_of_the_benchmark_imports_jax():
-    for path in _sources("harness", "reference", "metrics"):
+    for path in _sources("harness", "reference", "metrics", "systems"):
         assert not set(_imports(path)) & FORBIDDEN, path
     for path in (os.path.join(PERFBENCH, "run.py"),
                  os.path.join(PERFBENCH, "control.py")):
@@ -230,6 +369,7 @@ def test_a_loaded_process_holds_no_jax():
         "import run, control\n"
         "from harness import correct, drivers, measure, program, roofline, "
         "spec, trace, traffic, weights, counts\n"
+        "from systems import dit_vae\n"
         "import acestep_torch.serving.server, acestep_torch.inference\n"
         "import glob, os\n"
         "for p in glob.glob(os.path.join(%r, 'metrics', '*.py')):\n"
@@ -288,3 +428,46 @@ def test_a_trace_that_lost_kernels_is_taken_again(lost, seconds, stretches):
     tr.run(0.0)
     assert seen == stretches and tr.error is None
     assert len(tr.events) == 1
+
+
+def test_a_stretch_that_lost_its_kernels_reads_no_device_metric():
+    """The last take still lacks more than MAX_UNMATCHED of its kernels:
+    the summary marks the stretch, the device metrics (idle, K1 and K4
+    rooflines, the idle inside diffusion) read nothing and the result
+    line carries no breakdown; the span readers still read."""
+    from harness import measure
+    from harness.program import Recorder
+    from harness.trace import Tracer
+
+    tr = Tracer(Recorder(), "cpu", 20.0, 24.0, 28.0)
+
+    def fake(start, span):
+        tr.t_start, tr.t_stop = start, start + span
+        tr.events.append(("flash_fwd_kernel", start, start + 1, start))
+        tr.launches = {"k1": 1, "k4": 0}
+        tr.unmatched.append((1000, 60))
+
+    tr._trace = fake
+    tr.run(0.0)
+    t = tr.summary()
+    assert t["complete"] is False and t["lost"] == (60, 1000)
+    spans = [{"id": 1, "name": "diffusion", "start": 20.0, "end": 24.0,
+              "parent": None, "thread": 1, "requests": [], "attrs": {}},
+             {"id": 2, "name": "dit.step", "start": 20.0, "end": 21.0,
+              "parent": 1, "thread": 1, "requests": [], "attrs": {}}]
+    run = measure.Run(conf={}, w0=0.0, records=[], setup_s=1.0,
+                      memory_peak_bytes=0, card="NVIDIA H100 80GB HBM3",
+                      trace=t, program_spans=spans)
+    for name in ("idle_pct.serve", "k1_roofline_pct.serve",
+                 "k4_roofline_pct.long", "diffusion_idle_pct.long"):
+        assert spec_mod.reader(name).read(run) is None, name
+    assert spec_mod.reader("dit_step_host_ms.serve").read(run) == 1000.0
+    spec = spec_mod.Spec(BENCH, "turbo-rest-30s")
+    line = run_py.result_line(spec, run, {}, {}, True)
+    assert "breakdown" not in line
+    assert line["device"]["window_s"] == 4.0
+    run.trace = dict(t, complete=True)
+    assert spec_mod.reader("idle_pct.serve").read(run) == pytest.approx(75.0)
+    assert spec_mod.reader("diffusion_idle_pct.long").read(run) == \
+        pytest.approx(75.0)
+    assert "breakdown" in run_py.result_line(spec, run, {}, {}, True)

@@ -15,6 +15,7 @@ from conftest import PERFBENCH, tiny_conf
 from harness import correct, drivers, program, traffic, weights
 from reference import dit as ref_dit
 from reference import vae as ref_vae
+from systems import dit_vae
 
 
 def _full_conf():
@@ -30,8 +31,8 @@ def test_param_shapes_are_the_modules(size):
     from acestep_torch.models.vae import OobleckVAE
 
     conf = _full_conf() if size == "full" else tiny_conf()
-    cfg_dit = program._tuples(conf["dit"])
-    cfg_vae = program._tuples(conf["vae"])
+    cfg_dit = program.tuples(conf["dit"])
+    cfg_vae = program.tuples(conf["vae"])
     from acestep_torch.config import DiTConfig, VAEConfig
 
     dit = AceStepDiT(DiTConfig(**cfg_dit), device="meta")
@@ -64,14 +65,14 @@ def test_reference_matches_port_on_cpu(duration_s):
     tiled decode). Durations are whole 10 s frame buckets, as the cells'
     are: the port decodes the bucket's padding frames too."""
     conf = tiny_conf()
-    handler = program.build_handler(conf, 11, torch.device("cpu"))
+    handlers = dit_vae.build(conf, 11, torch.device("cpu"))
     mix = json.load(open(os.path.join(PERFBENCH, "traffic",
                                       "facade-wav-240s.json")))
     req = dict(traffic.requests(mix, 3, 0, count=1)[0], duration_s=duration_s)
-    res = drivers.Facade(handler, mix, None).one(dict(req, audio_format="wav"))
+    res = drivers.Facade(handlers, mix, None).one(dict(req, audio_format="wav"))
     assert res.success, res.error
     lat = res.extra_outputs["pred_latents"][0]
-    ref = correct.Reference(conf, 11, torch.device("cpu"))
+    ref = dit_vae.Reference(conf, 11, torch.device("cpu"))
     rec = drivers._record(req)
     want = ref.latents(rec)
     assert correct.rel(lat, want) < 1e-5
@@ -84,14 +85,14 @@ def test_fp8_control_reads_far_above_the_port():
     """The control (every weight rounded to fp8 e4m3) departs from the
     reference by many times what the port's float32 run does."""
     conf = tiny_conf()
-    handler = program.build_handler(conf, 5, torch.device("cpu"))
+    handlers = dit_vae.build(conf, 5, torch.device("cpu"))
     mix = json.load(open(os.path.join(PERFBENCH, "traffic",
                                       "facade-wav-240s.json")))
     req = dict(traffic.requests(mix, 9, 0, count=1)[0], duration_s=10.0)
-    res = drivers.Facade(handler, mix, None).one(dict(req, audio_format="wav"))
+    res = drivers.Facade(handlers, mix, None).one(dict(req, audio_format="wav"))
     rec = drivers._record(req)
-    ref = correct.Reference(conf, 5, torch.device("cpu"))
-    ctl = correct.Reference(conf, 5, torch.device("cpu"), fp8=True)
+    ref = dit_vae.Reference(conf, 5, torch.device("cpu"))
+    ctl = dit_vae.Reference(conf, 5, torch.device("cpu"), fp8=True)
     port = correct.rel(res.extra_outputs["pred_latents"][0], ref.latents(rec))
     control = correct.rel(ctl.latents(rec), ref.latents(rec))
     assert control > 100 * max(port, 1e-7)

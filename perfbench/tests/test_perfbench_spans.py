@@ -2,10 +2,15 @@
 `host_stages_s`, `dit_step_host_ms` and `diffusion_idle_pct`) on
 synthetic runs: a gap cut at span boundaries and put down to the
 innermost span, a fused render's host stages shared over its songs, and
-nothing read from a run that drained no program spans."""
+nothing read from a run that drained no program spans or whose ring
+dropped some; and the traced path of `run.py`, which turns the port's
+tracer on over the window of a `--trace 1` run only."""
 
 import pytest
+import torch
+from conftest import tiny_spec
 
+import run as run_py
 from harness import measure, spans
 from harness.spec import reader
 from harness.trace import K1_NAMES
@@ -22,7 +27,7 @@ def _run(program_spans=None, stretch=None, gaps=None):
                       memory_peak_bytes=0, card="cpu",
                       trace=None if stretch is None else
                       {"busy_s": 1.0, "window_s": stretch[1] - stretch[0],
-                       "stretch": stretch, "gaps": gaps})
+                       "stretch": stretch, "gaps": gaps, "complete": True})
     if program_spans is not None:
         run.program_spans = program_spans
     return run
@@ -96,11 +101,18 @@ def test_diffusion_idle_within_the_stretch():
         100 * 2 / 3)
 
 
+def _dropped():
+    run = _run(SPANS, stretch=(0.0, 21.0), gaps=[(0.5, 1.5)])
+    run.spans_dropped = 3
+    return run
+
+
 @pytest.mark.parametrize("run", [
     _run(),                                   # no program spans drained
     _run([]),                                 # drained, none recorded
     _run(None, stretch=(0.0, 1.0), gaps=[(0.0, 1.0)]),
-], ids=["absent", "empty", "traced-without-spans"])
+    _dropped(),                               # the ring dropped spans
+], ids=["absent", "empty", "traced-without-spans", "ring-dropped"])
 def test_nothing_read_without_program_spans(run):
     for name in ("host_stages_s.serve", "dit_step_host_ms.long",
                  "diffusion_idle_pct.long"):
@@ -131,28 +143,80 @@ def test_gaps_from_the_summary_and_kernels_launched_inside():
 
     tr = Tracer(Recorder(), "cpu", 0.0, 6.0)
     tr.t_start, tr.t_stop, tr.events = 0.0, 6.0, EVENTS
-    _assert_gaps(spans.gaps_of(tr, tr.summary))
-    assert "open_span" not in vars(tr)      # the tracer is left as it was
-    assert tr.summary()["idle_by_span"] == {"none": pytest.approx(3.8)}
+    out = tr.summary()
+    assert out["stretch"] == (0.0, 6.0) and out["complete"] is True
+    _assert_gaps(out["gaps"])
+    assert out["idle_by_span"] == {"none": pytest.approx(3.8)}
     # launched at 0.9 (outside) and 1.95 (inside [1, 3]); no launch time:
     # not counted
     assert spans.launched_inside(EVENTS, K1_NAMES, [(1.0, 3.0)]) == 50.0
     assert spans.launched_inside(EVENTS, ("absent",), [(1.0, 3.0)]) is None
 
 
-def test_the_traced_runs_tracer_in_the_harnesss_place(monkeypatch):
-    """traced_spans.py puts its Tracer where run.py looks it up; its
-    summary adds the stretch and the gaps and keeps the harness's own."""
-    import traced_spans
-    from harness import trace as htrace
-    from harness.program import Recorder
+@pytest.mark.parametrize("trace", [True, False], ids=["traced", "untraced"])
+def test_the_traced_runs_tracer_in_the_harnesss_place(trace, monkeypatch):
+    """run.py's own path, a tiny REST run on the CPU: with `--trace 1` the
+    port's tracer is on over the window alone, its spans and the change in
+    its counters are the run's, and the span readers read them; with
+    `--trace 0` the tracer stays off and nothing of it is read."""
+    from acestep_torch.utils import trace as ptrace
+    from harness import drivers
 
-    cls = traced_spans.span_tracer()
-    monkeypatch.setattr(htrace, "Tracer", cls)
-    tr = htrace.Tracer(Recorder(), "cpu", 0.0, 6.0)
-    tr.t_start, tr.t_stop, tr.events = 0.0, 6.0, EVENTS
-    out = tr.summary()
-    assert out["stretch"] == (0.0, 6.0)
-    _assert_gaps(out["gaps"])
-    assert out["idle_by_span"] == {"none": pytest.approx(3.8)}
-    assert cls.last is tr
+    seen = []
+    window = drivers.Rest.window
+
+    def spy(self, *a, **kw):
+        seen.append(ptrace.enabled())
+        out = window(self, *a, **kw)
+        seen.append(ptrace.enabled())
+        return out
+
+    monkeypatch.setattr(drivers.Rest, "window", spy)
+    spec = tiny_spec("turbo-rest-30s")
+    run, metrics, checks = run_py.execute(spec, 2**31 + 4321, 3.0, trace,
+                                          torch.device("cpu"))
+    assert run_py.verdict(checks, spec.limits)[0] is True, checks
+    assert seen == [trace, trace] and not ptrace.enabled()
+    if not trace:
+        assert run.program_spans is None and run.counters is None
+        return
+    names = {s["name"] for s in run.program_spans}
+    assert {"request", "render", "diffusion", "dit.step", "vae",
+            "serve.http"} <= names
+    assert all(s["start"] >= run.w0 - 0.2 for s in run.program_spans)
+    assert run.spans_dropped == 0
+    steps = sum(r["steps"] for r in run.ok if r["coalesced"] <= 1)
+    assert run.counters["dit_steps"] >= steps > 0
+    assert run.counters["songs"] >= len(run.ok)
+    assert metrics["host_stages_s.serve"]["value"] > 0
+    assert metrics["dit_step_host_ms.serve"]["value"] > 0
+    assert metrics["dit_graph_hit_pct.serve"]["value"] == 0.0  # eager CPU
+    # no device trace on the CPU: nothing read from it
+    assert run.trace is None and "diffusion_idle_pct.serve" not in metrics
+
+
+@pytest.mark.parametrize("spans_made,dropped", [(3, 0), (4, 0), (10, 6)])
+def test_the_port_ring_counts_what_it_dropped(spans_made, dropped,
+                                             monkeypatch):
+    """PortTrace over a ring of 4: every span opened between `open()` and
+    `close()` is drained or counted as dropped, and the counters' change
+    over the window is the run's."""
+    import collections
+
+    from acestep_torch.utils import trace as ptrace
+    from harness.program import PortTrace
+
+    monkeypatch.setattr(ptrace, "_ring", collections.deque(maxlen=4))
+    monkeypatch.setattr(ptrace, "RING_SIZE", 4)
+    ptrace.begin("before").end()            # tracer off: not recorded
+    port = PortTrace()
+    port.open()
+    for i in range(spans_made):
+        with ptrace.span(f"s{i}"):
+            ptrace.count("dit_steps")
+    got, lost, counters = port.close()
+    assert not ptrace.enabled()
+    assert [s["name"] for s in got] == [f"s{i}" for i in range(spans_made)
+                                        ][-4:]
+    assert lost == dropped and counters["dit_steps"] == spans_made
+    assert counters["renders"] == 0
