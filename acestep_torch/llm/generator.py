@@ -20,7 +20,12 @@ token per step:
 - caches come from a small arena of buffers per (rows, slots), so a
   graph's cache pointer stays valid across requests. A prefix state names
   the arena epoch it was made at and is ignored once its buffer has been
-  handed out again.
+  handed out again;
+- the tracer (utils/trace.py) sees each prefill (`lm.prefill`), CoT loop
+  (`lm.cot`), codes loop (`lm.codes`, each of its steps' enqueue an
+  `lm.step`) and graph capture (`lm.capture`) as a span, and counts
+  decode steps, graph captures and replays, and the CoT and code tokens
+  sampled.
 
 CFG pairing is a batch-axis concat [cond; uncond]; both halves share the
 sampled token. Sampling draws from a `torch.Generator` seeded with the
@@ -44,6 +49,7 @@ from acestep_torch.models.lm import (
     KVCache, QwenLM, apply_repetition_penalty, cfg_mix_logits, lm_forward,
     lm_logits_slice, sample_tokens,
 )
+from acestep_torch.utils import trace
 
 CHUNK = 16          # tokens between host reads in the chunked loops
 
@@ -160,23 +166,38 @@ class _GraphStep:
         # first real step overwrites (stale slots are never attended)
         self.row_lens = row_lens.clone()
         self.cache = cache
+        self.graph, self.out = self._capture(
+            lambda: step(self.toks, cache, self.row_lens, lo, hi), dev)
+
+    @staticmethod
+    def _capture(body: Callable, dev) -> tuple:
+        """(graph, its static output): `body` run once on a side stream,
+        then captured."""
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            step(self.toks, cache, self.row_lens, lo, hi)
+            body()
         torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph()
         # thread-local: in the REST server other threads (HTTP handlers, a
         # training run) may call CUDA while a worker captures; the
         # default global mode would invalidate the capture then
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.out = step(self.toks, cache, self.row_lens, lo, hi)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = body()
+        return graph, out
 
     def __call__(self, toks: torch.Tensor, row_lens: torch.Tensor):
         self.toks.copy_(toks)
         self.row_lens.copy_(row_lens)
         self.graph.replay()
         return self.out
+
+
+def _count_steps(step: Callable, n: int) -> None:
+    """`n` decode steps of `step` on the tracer's counters."""
+    trace.count("lm_decode_steps", n)
+    if isinstance(step, _GraphStep):
+        trace.count("lm_graph_replays", n)
 
 
 def _logits_at(model: QwenLM, cfg: LMConfig, cache: KVCache,
@@ -252,7 +273,10 @@ class LMEngine:
     (a CUDA graph does not span processes)."""
 
     _CROSS_PREFIX_MAX_SLOTS = 1024
-    _ARENA_MAX = 6
+    # thinking requests of mixed prompt lengths hold two CoT buffers a
+    # shape (the last CoT's is held for the next request's prefix) and
+    # one codes buffer a shape: 4 + 2 over 400-650-token prompts
+    _ARENA_MAX = 8
 
     def __init__(self, model: QwenLM, cfg: LMConfig, tokenizer,
                  dtype=torch.bfloat16, max_len: int = 4096, mesh=None,
@@ -287,6 +311,7 @@ class LMEngine:
         self.vocab_use = min(cfg.vocab_size, -(-hi // 128) * 128)
         self._dev_tbl_cache: Dict[int, tuple] = {}
         self._arena: List[KVCache] = []
+        self._roles: Dict[int, str] = {}      # buffer pointer -> its role
         self._graphs: Dict[tuple, _GraphStep] = {}
         self.graph_captures = 0
         self.last_prefill_stats: Dict[str, int] = {}
@@ -307,19 +332,27 @@ class LMEngine:
     # --------------------------------------------------------------
 
     def _take_cache(self, rows: int, slots: int,
-                    keep: Sequence[Optional[PrefixState]]) -> KVCache:
-        """A cache buffer of (rows, slots) that no state in `keep` holds,
-        moved to a new epoch. Its old contents stay: every slot at or past
-        a row's length is overwritten before any query can see it. The
-        arena keeps at most _ARENA_MAX buffers, least recently used first;
-        an evicted buffer's graphs go with it."""
+                    keep: Sequence[Optional[PrefixState]],
+                    role: str = "gen") -> KVCache:
+        """A cache buffer of (rows, slots) for `role` ("cot", "codes" or
+        "gen") that no state in `keep` holds, moved to a new epoch. Its old
+        contents stay: every slot at or past a row's length is overwritten
+        before any query can see it. A buffer serves one role: the CoT
+        replays its step over a buffer's whole view and every id, the codes
+        over the ladder's views and the code window, so a buffer passed
+        between them would gather both kinds of graph, and the graphs a mix
+        of prompts needs would keep growing. The arena keeps at most
+        _ARENA_MAX buffers, least recently used first; an evicted buffer's
+        graphs go with it."""
         held = {s.cache.k.data_ptr() for s in keep if s is not None}
         shape = (rows, slots)
         buf = next((b for b in self._arena
                     if (b.k.shape[1], b.slots) == shape
+                    and self._roles.get(b.k.data_ptr()) == role
                     and b.k.data_ptr() not in held), None)
         if buf is None:
             buf = self._new_cache(rows, slots)
+            self._roles[buf.k.data_ptr()] = role
         else:
             self._arena.remove(buf)
         evicted = []
@@ -328,6 +361,7 @@ class LMEngine:
                 break
             self._arena.remove(old)
             evicted.append(old.uid)
+            self._roles.pop(old.k.data_ptr(), None)
             self._graphs = {k: g for k, g in self._graphs.items()
                             if k[0] != old.k.data_ptr()}
         if evicted and self.mesh is not None:
@@ -393,9 +427,12 @@ class LMEngine:
         key = (cache.k.data_ptr(), tuple(cache.k.shape), lo, hi)
         g = self._graphs.get(key)
         if g is None:
-            g = _GraphStep(self._step_eager, cache, row_lens, lo, hi)
+            with trace.span("lm.capture", rows=int(row_lens.shape[0]),
+                            slots=cache.slots, window=hi - lo):
+                g = _GraphStep(self._step_eager, cache, row_lens, lo, hi)
             self._graphs[key] = g
             self.graph_captures += 1
+            trace.count("lm_graph_captures")
         return g
 
     # --------------------------------------------------------------
@@ -424,7 +461,8 @@ class LMEngine:
     def _prefill_prompts(self, all_prompts: Sequence[str],
                          new_tokens_budget: int,
                          prefix: Optional[PrefixState] = None,
-                         rows: Optional[List[List[int]]] = None):
+                         rows: Optional[List[List[int]]] = None,
+                         role: str = "gen"):
         """Tokenize + bucket-pad + prefill. Returns (logits, cache, lens,
         clamped_budget). The KV cache is sized for prompt + budget; the
         budget is clamped so decode never writes past the cache.
@@ -466,6 +504,14 @@ class LMEngine:
 
         dlens = lens - P
         D = _bucket(int(dlens.max()))
+        need = _kv_bucket(int(lens.max()) + budget)
+        if int(P.max()) + D > need:
+            # the bucket's padding would outgrow the cache the request
+            # needs (a reused prefix moves every row's writes on): pad to
+            # that cache's end instead, or only as far as the longest
+            # row's tokens where they reach past it, so the slot count,
+            # and the decode graphs held for it, follow the request alone
+            D = max(int(dlens.max()), need - int(P.max()))
         ids = np.full((len(rows), D), pad_id, np.int64)
         for i, r in enumerate(rows):
             d = r[P[i]:][:D]
@@ -477,7 +523,8 @@ class LMEngine:
         # budget when rows are ragged and the budget small)
         cache_len = _kv_bucket(max(int(lens.max()) + budget, int(P.max()) + D))
         cache = self._take_cache(len(rows), cache_len,
-                                 keep=(prefix, self._cross_prefix))
+                                 keep=(prefix, self._cross_prefix),
+                                 role=role)
         if prefix is not None and int(P.max()) > 0:
             copy = min(_kv_bucket(int(P.max())), prefix.cache.slots,
                        cache_len)
@@ -493,10 +540,19 @@ class LMEngine:
             self.prefill_stats[k] += self.last_prefill_stats[k]
 
         dev = self.device
-        logits = self._logits(
-            cache, torch.as_tensor(ids, device=dev),
-            torch.as_tensor(P, device=dev), 0, self.vocab_use,
-            last=torch.as_tensor(np.clip(dlens - 1, 0, D - 1), device=dev))
+        with trace.span("lm.prefill", rows=len(rows),
+                        tokens=self.last_prefill_stats["delta_tokens"],
+                        reused=self.last_prefill_stats["reused_tokens"],
+                        padded=len(rows) * D) as sp:
+            logits = self._logits(
+                cache, torch.as_tensor(ids, device=dev),
+                torch.as_tensor(P, device=dev), 0, self.vocab_use,
+                last=torch.as_tensor(np.clip(dlens - 1, 0, D - 1),
+                                     device=dev))
+            if sp.recording and dev.type == "cuda":
+                # traced, the prefill waits for its logits: its span then
+                # holds its device work, and the next phase's span none
+                torch.cuda.synchronize(dev)
         return logits, cache, lens, budget
 
     def _generator(self, seed: int) -> torch.Generator:
@@ -584,12 +640,15 @@ class LMEngine:
         mix = _pen_mix_fn(do_cfg, cfg_scale, repetition_penalty)
         step = self.decode_step(cache, row_lens, 0, vocab)
 
+        steps = 0
+
         def advance(toks):
-            nonlocal logits, seen, row_lens
+            nonlocal logits, seen, row_lens, steps
             seen = _mark_seen(seen, toks)
             feed = torch.cat([toks, toks]) if do_cfg else toks
             logits = step(feed, row_lens)
             row_lens = row_lens + 1
+            steps += 1
 
         if not have_fsm:
             # Unconstrained path: CHUNK tokens between host reads; overshoot
@@ -638,6 +697,7 @@ class LMEngine:
                         check_row(i, int(toks_host[i]))
                 if done.all():
                     break
+        _count_steps(step, steps)
 
         for i in range(B):
             text = self.tok.decode(generated[i])
@@ -704,7 +764,7 @@ class LMEngine:
                                        if do_cfg else [])
         prompt_rows = [self.tok.encode(p)[: self.max_len] for p in all_prompts]
         logits, cache, lens, max_tokens = self._prefill_prompts(
-            all_prompts, max_tokens, rows=prompt_rows)
+            all_prompts, max_tokens, rows=prompt_rows, role="cot")
         tbl = self._device_tables(fsm_tables)
         done_state = int(fsm_tables.done)
         dev = self.device
@@ -720,6 +780,7 @@ class LMEngine:
         seen = torch.zeros((B, V), dtype=torch.bool, device=dev)
         pad_only = torch.zeros(V, dtype=torch.bool, device=dev)
         pad_only[pad_id] = True
+        cot = trace.begin("lm.cot", rows=len(all_prompts), songs=B)
         i = 0
         while i < max_tokens:
             for _ in range(min(CHUNK, max_tokens - i)):
@@ -749,6 +810,10 @@ class LMEngine:
                 break
         toks = toks.cpu().numpy()
         counts = counts.cpu().numpy()
+        cot.set(steps=i, tokens=int(counts.sum()))
+        cot.end()
+        _count_steps(step, i)
+        trace.count("lm_cot_tokens", int(counts.sum()))
         outs = [toks[r, : counts[r]].tolist() for r in range(B)]
         # steps past the last row's done transition are dropped: the state
         # holds what the JAX loop holds when it stops there
@@ -850,7 +915,7 @@ class LMEngine:
         all_prompts = list(prompts) + (list(unconditional_prompts)
                                        if do_cfg else [])
         logits, cache, lens, budget = self._prefill_prompts(
-            all_prompts, n_codes, prefix=prefix)
+            all_prompts, n_codes, prefix=prefix, role="codes")
         if budget < n_codes:
             raise ValueError(
                 f"{n_codes} codes need more context than max_len "
@@ -867,19 +932,26 @@ class LMEngine:
                            device=dev)
         row_lens = torch.as_tensor(lens, device=dev)
         codes = []
+        span = trace.begin("lm.codes", rows=len(all_prompts), songs=B,
+                           steps=n_codes, kv_tokens=int(np.sum(lens)),
+                           window=code_end - code_start)
         for ceil, steps in schedule:
             step = self.decode_step(cache.view(ceil), row_lens, code_start,
                                     code_end)
+            _count_steps(step, steps)
             for _ in range(steps):
-                rel = sample_tokens(gen, mix(logits, seen),
-                                    temperature=temperature, top_k=top_k,
-                                    top_p=top_p)
-                seen = _mark_seen(seen, rel)
-                toks = rel + code_start
-                feed = torch.cat([toks, toks]) if do_cfg else toks
-                logits = step(feed, row_lens)
-                row_lens = row_lens + 1
+                with trace.span("lm.step"):
+                    rel = sample_tokens(gen, mix(logits, seen),
+                                        temperature=temperature, top_k=top_k,
+                                        top_p=top_p)
+                    seen = _mark_seen(seen, rel)
+                    toks = rel + code_start
+                    feed = torch.cat([toks, toks]) if do_cfg else toks
+                    logits = step(feed, row_lens)
+                    row_lens = row_lens + 1
                 codes.append(rel)
-        if not codes:
-            return [[] for _ in range(B)]
-        return torch.stack(codes, dim=1).cpu().numpy()[:B].tolist()
+        out = (torch.stack(codes, dim=1).cpu().numpy()[:B].tolist() if codes
+               else [[] for _ in range(B)])
+        span.end()
+        trace.count("lm_code_tokens", B * n_codes)
+        return out

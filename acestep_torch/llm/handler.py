@@ -11,7 +11,8 @@ One backend: llm/generator.LMEngine, whose decode step replays as a CUDA
 graph on the card. Quantized planners (`quantization=`, ops/quant) run
 the same engine; `tensor_parallel=n` runs it over a 1 x n mesh of
 processes (parallel/mesh.py), the vocabulary and w8a8's `head_q` split
-with the heads.
+with the heads. The host replay of a CoT through the MetadataFSM, with
+its parse, is the tracer's `lm.fsm` span.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from acestep_torch.constants import DEFAULT_LM_INSTRUCTION
 from acestep_torch.llm.fsm import MetadataFSM, TokenTables
 from acestep_torch.llm.generator import LMEngine
 from acestep_torch.llm.tokenizer import SimpleTokenizer
+from acestep_torch.utils import trace
 
 # ------------------------------------------------------------------
 # Output parsing (reference parse_lm_output :2535-2650)
@@ -520,9 +522,10 @@ class LLMHandler:
                 repetition_penalty=repetition_penalty,
                 fsm_tables=tables, max_tokens=max_cot_tokens, seed=seed,
                 return_state=True)
-            for t in token_ids:
-                fsm.advance(t)
-            cot_raw = self.tokenizer.decode(token_ids)
+            with trace.span("lm.fsm", rows=1, tokens=len(token_ids)):
+                for t in token_ids:
+                    fsm.advance(t)
+                cot_raw = self.tokenizer.decode(token_ids)
         else:
             out = self.engine.generate(
                 [prompt], unconditional_prompts=[neg], cfg_scale=cfg_scale,
@@ -686,6 +689,8 @@ class LLMHandler:
 
         results: List[Dict[str, Any]] = []
         durations: List[float] = []
+        replay = trace.begin("lm.fsm", rows=len(token_lists),
+                             tokens=sum(len(ids) for ids in token_lists))
         for ids in token_lists:
             fsm = MetadataFSM(self.tables, user_metadata=user_metadata,
                               max_duration=self.max_duration,
@@ -707,6 +712,7 @@ class LLMHandler:
             except (TypeError, ValueError):
                 dur = 30.0
             durations.append(dur)
+        replay.end()
         if infer_type == "dit":
             return results
 

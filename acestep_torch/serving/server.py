@@ -1335,7 +1335,9 @@ class _Handler(BaseHTTPRequestHandler):
         at the JSON /v1/stats): job counts by status, queue depth, rolling
         average job wall, uptime, the program's counters (renders, songs,
         DiT steps, the VAE's out-of-memory step-downs, fused renders
-        retried job by job, coalesced jobs, seconds by render stage), and
+        retried job by job, the planner's decode steps, graph captures and
+        replays and CoT and code tokens, coalesced jobs, seconds by render
+        stage), and
         on a CUDA device the caching allocator's allocated and reserved
         bytes and the device total — enough for standard
         alerting/dashboards with zero deps."""

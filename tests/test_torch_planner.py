@@ -249,8 +249,11 @@ def test_stale_prefix_state_is_ignored(pair):
     eng.cross_prefix_enabled = False
     eng._cross_prefix = None
     try:
-        for _ in range(8):  # churn the arena until st's buffer is reused
-            eng.generate_codes(["b" * len(p1)], n_codes=6, temperature=0.0)
+        # churn the arena until st's buffer is reused: a CoT buffer goes
+        # only to another CoT
+        for _ in range(8):
+            eng.generate_cot_device(p1, fsm_tables=th._cot_tables(
+                None, None, None), max_tokens=32, temperature=0.0)
         assert not st.valid
         assert eng.generate_codes([p2], n_codes=6, temperature=0.0,
                                   prefix=st) == fresh

@@ -220,7 +220,8 @@ def _multipart(fields, files):
 _PORT_COUNTERS = re.compile(
     r"acestep_(renders|songs|dit_steps|dit_graph_captures|"
     r"dit_graph_replays|vae_plan_retries|serve_group_fallbacks|"
-    r"coalesced_jobs|stage_seconds)_total")
+    r"lm_decode_steps|lm_graph_captures|lm_graph_replays|lm_cot_tokens|"
+    r"lm_code_tokens|coalesced_jobs|stage_seconds)_total")
 
 
 def _metrics_lines(raw):
